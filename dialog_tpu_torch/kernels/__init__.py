@@ -1,0 +1,7 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
+
+``fast`` (FAST-9 + NMS + rank), ``hamming`` (gated best/second-best Hamming
+matching) and ``schur`` (fused BA Jacobian + Schur reduction) replace the
+reference's three Pallas kernels. A wrapper given a CPU tensor runs the plain
+version; given a CUDA tensor it launches the kernel or raises.
+"""
