@@ -32,8 +32,25 @@
 // No float atomics anywhere: the same inputs give bitwise-equal outputs
 // from run to run. The TPU-only layout (lane-major planes, one-hot camera
 // gathers/scatters, camera padding to 8, the MAX_CAMS VMEM cap) is gone.
+//
+// Stereo variant (schur_pass1<true>, the Pallas body's use_stereo): for an
+// observation with a right-x obs_ur >= 0 a third row adds
+//   rw = fx x/z + cx - bf/z - uR,  chi2 = (rx^2 + ry^2 + rw^2) w_info with
+//   Huber bound delta2_st (mono observations: two rows, delta2),
+//   Jw = [a, 0, c2, c2 y, a z - c2 x, -a y], c2 = c + bf/z^2 (zero for
+//   frozen cameras), Jlw = a R[0,:] + c2 R[2,:],
+// into Hll, g_l, Y, Hcc, g_c, g_red and S_pair. Its per-observation record
+// (ObsRecStereo, 224 B) makes TP x MAXO records 57,344 B, above the 48 KB
+// static shared-memory limit, so the stereo instance takes its records as
+// dynamic shared memory (cudaFuncAttributeMaxDynamicSharedMemorySize), and
+// the mono instance keeps its static 47,104 B and its arithmetic as it was.
+// TP stays 16 in both: a smaller TP would multiply the per-block partial
+// slabs, which at C = 64 are already the largest traffic (P/TP blocks x
+// (36 C^2 + 48 C) floats: 308 MB at P = 8192).
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -50,22 +67,72 @@ struct ObsRec {
   float YL[18];               // Y L^-T (6x3)
 };
 
+struct ObsRecStereo : ObsRec {
+  float rw;                   // uR residual (mono observations: zero)
+  float Jw[6];                // uR pose row (frozen cameras, mono observations: zero)
+  float Jlw[3];               // uR point row (mono observations: zero)
+};
+
+// Sums over an observation's residual rows (u, v, and uR for a stereo record):
+// point x point (Hll), point x residual (g_l), pose x point (Y), pose x pose
+// (Hcc), pose x residual (g_c). The stereo overloads add the uR row last.
+__device__ __forceinline__ float rows_ll(const ObsRec& q, int i, int k) {
+  return q.Jlu[i] * q.Jlu[k] + q.Jlv[i] * q.Jlv[k];
+}
+__device__ __forceinline__ float rows_ll(const ObsRecStereo& q, int i, int k) {
+  return rows_ll(static_cast<const ObsRec&>(q), i, k) + q.Jlw[i] * q.Jlw[k];
+}
+__device__ __forceinline__ float rows_lr(const ObsRec& q, int k) {
+  return q.Jlu[k] * q.rx + q.Jlv[k] * q.ry;
+}
+__device__ __forceinline__ float rows_lr(const ObsRecStereo& q, int k) {
+  return rows_lr(static_cast<const ObsRec&>(q), k) + q.Jlw[k] * q.rw;
+}
+__device__ __forceinline__ float rows_cl(const ObsRec& q, int i, int k) {
+  return q.Ju[i] * q.Jlu[k] + q.Jv[i] * q.Jlv[k];
+}
+__device__ __forceinline__ float rows_cl(const ObsRecStereo& q, int i, int k) {
+  return rows_cl(static_cast<const ObsRec&>(q), i, k) + q.Jw[i] * q.Jlw[k];
+}
+__device__ __forceinline__ float rows_cc(const ObsRec& q, int i, int j) {
+  return q.Ju[i] * q.Ju[j] + q.Jv[i] * q.Jv[j];
+}
+__device__ __forceinline__ float rows_cc(const ObsRecStereo& q, int i, int j) {
+  return rows_cc(static_cast<const ObsRec&>(q), i, j) + q.Jw[i] * q.Jw[j];
+}
+__device__ __forceinline__ float rows_cr(const ObsRec& q, int i) {
+  return q.Ju[i] * q.rx + q.Jv[i] * q.ry;
+}
+__device__ __forceinline__ float rows_cr(const ObsRecStereo& q, int i) {
+  return rows_cr(static_cast<const ObsRec&>(q), i) + q.Jw[i] * q.rw;
+}
+
+template <bool STEREO>
 __global__ void schur_pass1(const float* __restrict__ R, const float* __restrict__ T,
                             const unsigned char* __restrict__ cam_opt,
                             const float* __restrict__ xyz, const int* __restrict__ obs_cam,
                             const float* __restrict__ obs_uv, const float* __restrict__ obs_w,
+                            const float* __restrict__ obs_ur,
                             const float* __restrict__ lam_ptr, float fx, float fy, float cx,
-                            float cy, float delta2, int C, int P, int O,
+                            float cy, float delta2, float bf, float delta2_st, int C, int P, int O,
                             float* __restrict__ hll_inv_out, float* __restrict__ gl_out,
                             float* __restrict__ y_out, float* __restrict__ part) {
-  __shared__ ObsRec rec[TP * MAXO];
+  using Rec = typename std::conditional<STEREO, ObsRecStereo, ObsRec>::type;
+  extern __shared__ __align__(16) unsigned char dyn_smem[];   // stereo records (launch-sized)
+  Rec* rec;
+  if constexpr (STEREO) {
+    rec = reinterpret_cast<Rec*>(dyn_smem);
+  } else {
+    __shared__ ObsRec static_rec[TP * MAXO];
+    rec = static_rec;
+  }
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * TP;
   const float lam = *lam_ptr;
 
   if (tid < TP) {
     const int p = p0 + tid;
-    ObsRec* my = rec + tid * MAXO;
+    Rec* my = rec + tid * MAXO;
     if (p >= P) {
       for (int o = 0; o < O; ++o) my[o].cam = -1;
     } else {
@@ -73,7 +140,7 @@ __global__ void schur_pass1(const float* __restrict__ R, const float* __restrict
       float h00 = 0.f, h01 = 0.f, h02 = 0.f, h11 = 0.f, h12 = 0.f, h22 = 0.f;
       float g0 = 0.f, g1 = 0.f, g2 = 0.f;
       for (int o = 0; o < O; ++o) {
-        ObsRec& q = my[o];
+        Rec& q = my[o];
         const int c = obs_cam[p * O + o];
         const float wi = obs_w[p * O + o];
         q.cam = -1;
@@ -81,6 +148,11 @@ __global__ void schur_pass1(const float* __restrict__ R, const float* __restrict
         q.rx = q.ry = 0.f;
         for (int k = 0; k < 6; ++k) q.Ju[k] = q.Jv[k] = 0.f;
         for (int k = 0; k < 3; ++k) q.Jlu[k] = q.Jlv[k] = 0.f;
+        if constexpr (STEREO) {
+          q.rw = 0.f;
+          for (int k = 0; k < 6; ++k) q.Jw[k] = 0.f;
+          for (int k = 0; k < 3; ++k) q.Jlw[k] = 0.f;
+        }
         if (c < 0 || c >= C || !(wi > 0.f)) continue;
         const float* Rc = R + c * 9;
         const float* tc = T + c * 3;
@@ -92,9 +164,18 @@ __global__ void schur_pass1(const float* __restrict__ R, const float* __restrict
         const float iz2 = iz * iz;
         const float rx = fx * xc * iz + cx - obs_uv[(p * O + o) * 2];
         const float ry = fy * yc * iz + cy - obs_uv[(p * O + o) * 2 + 1];
-        const float chi2 = (rx * rx + ry * ry) * wi;
-        const float wr = (chi2 <= delta2) ? 1.f : sqrtf(delta2 / fmaxf(chi2, 1e-12f));
-        const float w = wi * wr;
+        float r2 = rx * rx + ry * ry;
+        float d2 = delta2;
+        if constexpr (STEREO) {
+          const float ur = obs_ur[p * O + o];
+          if (ur >= 0.f) {
+            q.rw = fx * xc * iz + cx - bf * iz - ur;
+            r2 += q.rw * q.rw;
+            d2 = delta2_st;
+          }
+        }
+        const float chi2 = r2 * wi;
+        const float w = wi * ((chi2 <= d2) ? 1.f : sqrtf(d2 / fmaxf(chi2, 1e-12f)));
         const float a = fx * iz, cc = -fx * xc * iz2, b = fy * iz, d = -fy * yc * iz2;
         const float opt = cam_opt[c] ? 1.f : 0.f;
         q.w = w;
@@ -117,15 +198,27 @@ __global__ void schur_pass1(const float* __restrict__ R, const float* __restrict
           q.Jlv[k] = b * Rc[3 + k] + d * Rc[6 + k];
         }
         if (cam_opt[c]) q.cam = c;
-        h00 += w * (q.Jlu[0] * q.Jlu[0] + q.Jlv[0] * q.Jlv[0]);
-        h01 += w * (q.Jlu[0] * q.Jlu[1] + q.Jlv[0] * q.Jlv[1]);
-        h02 += w * (q.Jlu[0] * q.Jlu[2] + q.Jlv[0] * q.Jlv[2]);
-        h11 += w * (q.Jlu[1] * q.Jlu[1] + q.Jlv[1] * q.Jlv[1]);
-        h12 += w * (q.Jlu[1] * q.Jlu[2] + q.Jlv[1] * q.Jlv[2]);
-        h22 += w * (q.Jlu[2] * q.Jlu[2] + q.Jlv[2] * q.Jlv[2]);
-        g0 += w * (q.Jlu[0] * rx + q.Jlv[0] * ry);
-        g1 += w * (q.Jlu[1] * rx + q.Jlv[1] * ry);
-        g2 += w * (q.Jlu[2] * rx + q.Jlv[2] * ry);
+        if constexpr (STEREO) {
+          if (obs_ur[p * O + o] >= 0.f) {
+            const float c2 = cc + bf * iz2;
+            q.Jw[0] = a * opt;
+            q.Jw[1] = 0.f;
+            q.Jw[2] = c2 * opt;
+            q.Jw[3] = c2 * yc * opt;
+            q.Jw[4] = (a * zc - c2 * xc) * opt;
+            q.Jw[5] = -a * yc * opt;
+            for (int k = 0; k < 3; ++k) q.Jlw[k] = a * Rc[k] + c2 * Rc[6 + k];
+          }
+        }
+        h00 += w * rows_ll(q, 0, 0);
+        h01 += w * rows_ll(q, 0, 1);
+        h02 += w * rows_ll(q, 0, 2);
+        h11 += w * rows_ll(q, 1, 1);
+        h12 += w * rows_ll(q, 1, 2);
+        h22 += w * rows_ll(q, 2, 2);
+        g0 += w * rows_lr(q, 0);
+        g1 += w * rows_lr(q, 1);
+        g2 += w * rows_lr(q, 2);
       }
       // damped block and its closed-form Cholesky inverse Li = L^-1
       const float H00 = h00 + lam * fmaxf(h00, 1e-9f) + 1e-9f;
@@ -159,11 +252,10 @@ __global__ void schur_pass1(const float* __restrict__ R, const float* __restrict
       // Lh = Li^T (upper triangular): Lh[j][k] = Li[k][j]
       const float Lh[3][3] = {{i11, i21, i31}, {0.f, i22, i32}, {0.f, 0.f, i33}};
       for (int o = 0; o < O; ++o) {
-        ObsRec& q = my[o];
+        Rec& q = my[o];
         float Yo[6][3];
         for (int i = 0; i < 6; ++i)
-          for (int k = 0; k < 3; ++k)
-            Yo[i][k] = q.w * (q.Ju[i] * q.Jlu[k] + q.Jv[i] * q.Jlv[k]);
+          for (int k = 0; k < 3; ++k) Yo[i][k] = q.w * rows_cl(q, i, k);
         float* yo = y_out + (size_t)(p * O + o) * 18;
         for (int i = 0; i < 6; ++i) {
           for (int k = 0; k < 3; ++k) yo[i * 3 + k] = Yo[i][k];
@@ -193,15 +285,15 @@ __global__ void schur_pass1(const float* __restrict__ R, const float* __restrict
     float hacc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     float gacc = 0.f, racc = 0.f;
     for (int lp = 0; lp < TP; ++lp) {
-      const ObsRec* lr = rec + lp * MAXO;
+      const Rec* lr = rec + lp * MAXO;
       for (int o = 0; o < O; ++o) {
-        const ObsRec& q = lr[o];
+        const Rec& q = lr[o];
         if (q.cam != c) continue;
-        for (int j = 0; j < 6; ++j) hacc[j] += q.w * (q.Ju[i] * q.Ju[j] + q.Jv[i] * q.Jv[j]);
-        gacc += q.w * (q.Ju[i] * q.rx + q.Jv[i] * q.ry);
+        for (int j = 0; j < 6; ++j) hacc[j] += q.w * rows_cc(q, i, j);
+        gacc += q.w * rows_cr(q, i);
         racc += q.gred[i];
         for (int o2 = 0; o2 < O; ++o2) {
-          const ObsRec& q2 = lr[o2];
+          const Rec& q2 = lr[o2];
           if (q2.cam < 0) continue;
           float* dst = Srow + q2.cam * 6;
           for (int j = 0; j < 6; ++j)
@@ -229,24 +321,42 @@ __global__ void schur_pass2(const float* __restrict__ part, int n_blocks, int n_
 
 extern "C" int schur_num_blocks(int P) { return (P + TP - 1) / TP; }
 
+// obs_ur (f32 [P, O]) is read only when stereo != 0, and may be null otherwise.
 extern "C" int schur_reduce_launch(const void* R, const void* t, const void* cam_opt,
                                    const void* xyz, const void* obs_cam, const void* obs_uv,
-                                   const void* obs_w, const void* lam, float fx, float fy,
-                                   float cx, float cy, float delta2, int C, int P, int O,
+                                   const void* obs_w, const void* obs_ur, const void* lam,
+                                   float fx, float fy, float cx, float cy, float delta2,
+                                   float bf, float delta2_st, int stereo, int C, int P, int O,
                                    void* hll_inv, void* g_l, void* Y, void* part,
                                    void* cam_out, void* stream) {
-  if (O > MAXO || C <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (O > MAXO || C <= 0 || (stereo && obs_ur == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_blocks = schur_num_blocks(P);
   const int n_out = 36 * C * C + 48 * C;
   if (n_blocks > 0) {
-    schur_pass1<<<n_blocks, NT, 0, s>>>(
-        static_cast<const float*>(R), static_cast<const float*>(t),
-        static_cast<const unsigned char*>(cam_opt), static_cast<const float*>(xyz),
-        static_cast<const int*>(obs_cam), static_cast<const float*>(obs_uv),
-        static_cast<const float*>(obs_w), static_cast<const float*>(lam), fx, fy, cx, cy,
-        delta2, C, P, O, static_cast<float*>(hll_inv), static_cast<float*>(g_l),
-        static_cast<float*>(Y), static_cast<float*>(part));
+    const float* Rf = static_cast<const float*>(R);
+    if (stereo) {
+      const int smem = static_cast<int>(TP * MAXO * sizeof(ObsRecStereo));
+      cudaError_t err = cudaFuncSetAttribute(schur_pass1<true>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      schur_pass1<true><<<n_blocks, NT, smem, s>>>(
+          Rf, static_cast<const float*>(t), static_cast<const unsigned char*>(cam_opt),
+          static_cast<const float*>(xyz), static_cast<const int*>(obs_cam),
+          static_cast<const float*>(obs_uv), static_cast<const float*>(obs_w),
+          static_cast<const float*>(obs_ur), static_cast<const float*>(lam), fx, fy, cx, cy,
+          delta2, bf, delta2_st, C, P, O, static_cast<float*>(hll_inv),
+          static_cast<float*>(g_l), static_cast<float*>(Y), static_cast<float*>(part));
+    } else {
+      schur_pass1<false><<<n_blocks, NT, 0, s>>>(
+          Rf, static_cast<const float*>(t), static_cast<const unsigned char*>(cam_opt),
+          static_cast<const float*>(xyz), static_cast<const int*>(obs_cam),
+          static_cast<const float*>(obs_uv), static_cast<const float*>(obs_w), nullptr,
+          static_cast<const float*>(lam), fx, fy, cx, cy, delta2, 0.f, 0.f, C, P, O,
+          static_cast<float*>(hll_inv), static_cast<float*>(g_l), static_cast<float*>(Y),
+          static_cast<float*>(part));
+    }
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

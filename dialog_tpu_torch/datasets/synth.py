@@ -2,8 +2,11 @@
 
 ``make_scene`` draws a random landmark cloud and a smooth camera path with
 known poses; ``render_image`` rasterizes the landmarks as distinctive texture
-patches so the full image frontend can run in the loop. Both produce the
-same arrays as the reference from the same seed. The reference smooths the
+patches so the full image frontend can run in the loop, and ``render_depth``
+gives the depth map aligned with it; ``observe`` bypasses the frontend and
+emits projected, noisy keypoints (with stereo right-x and depth when
+``cfg.bf > 0``). All produce the same arrays as the reference from the same
+seed. The reference smooths the
 render with ``cv2.GaussianBlur(img, (0, 0), 1.2)`` when OpenCV is importable;
 this copy implements that blur itself (``gaussian_blur_cv``), so it needs
 no OpenCV.
@@ -11,11 +14,14 @@ no OpenCV.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from ..config import EngineConfig
+from ..containers import FrameArrays
 
 
 class SynthScene(NamedTuple):
@@ -76,6 +82,69 @@ def make_scene(seed: int = 0, n_points: int = 600, n_frames: int = 30, trajector
     return SynthScene(xyz, desc, np.stack(Rs), np.stack(ts), cfg)
 
 
+def observe(scene: SynthScene, frame: int, noise_px: float = 0.5, desc_flips: int = 8,
+            seed: int | None = None, drop_rate: float = 0.0, device="cpu"):
+    """Project the scene into frame ``frame`` -> (FrameArrays on ``device``,
+    lm_ids i32[F] numpy).
+
+    lm_ids[j] is the ground-truth landmark index of feature j (-1 for padding).
+    Keypoints carry N(0, noise_px) pixel noise and descriptors ``desc_flips``
+    flipped bits, drawn from the reference's numpy stream; with ``cfg.bf > 0``
+    each keypoint also carries its true depth and the right-x ``u - bf/z``.
+    """
+    cfg = scene.cfg
+    rng = np.random.default_rng(frame * 7919 + 13 if seed is None else seed)
+    R, t = scene.R[frame], scene.t[frame]
+    Xc = scene.xyz @ R.T + t
+    z = Xc[:, 2]
+    u = cfg.fx * Xc[:, 0] / np.maximum(z, 1e-9) + cfg.cx
+    v = cfg.fy * Xc[:, 1] / np.maximum(z, 1e-9) + cfg.cy
+    vis = ((z > 0.1) & (u >= 8) & (u < cfg.width - 8) & (v >= 8) & (v < cfg.height - 8)
+           & (rng.random(len(z)) >= drop_rate))
+    ids = np.nonzero(vis)[0]
+    rng.shuffle(ids)
+    ids = ids[: cfg.max_features]
+    n = len(ids)
+
+    F = cfg.max_features
+    uv = np.zeros((F, 2), np.float32)
+    uv[:n, 0] = u[ids] + rng.normal(0, noise_px, n)
+    uv[:n, 1] = v[ids] + rng.normal(0, noise_px, n)
+    # detection octave tracks apparent size (closer -> coarser level)
+    octave = np.zeros((F,), np.int32)
+    dist = np.linalg.norm(scene.xyz[ids] - (-(R.T @ t)), axis=1)
+    octave[:n] = np.clip(
+        np.round(np.log(25.0 / np.maximum(dist, 1e-3)) / np.log(cfg.scale_factor)), 0, cfg.n_levels - 1
+    ).astype(np.int32)
+    desc = np.zeros((F, 8), np.uint32)
+    desc[:n] = scene.desc[ids]
+    if desc_flips > 0 and n > 0:
+        words = rng.integers(0, 8, (n, desc_flips))
+        bits = rng.integers(0, 32, (n, desc_flips))
+        for i in range(n):
+            for w, b in zip(words[i], bits[i]):
+                desc[i, w] ^= np.uint32(1 << b)
+    depth = np.full((F,), -1.0, np.float32)
+    u_right = np.full((F,), -1.0, np.float32)
+    if cfg.bf > 0:
+        depth[:n] = z[ids]
+        u_right[:n] = uv[:n, 0] - cfg.bf / np.maximum(z[ids], 1e-9)
+    valid = np.zeros((F,), bool)
+    valid[:n] = True
+    lm_ids = np.full((F,), -1, np.int32)
+    lm_ids[:n] = ids
+
+    def t_(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    fr = FrameArrays(
+        uv=t_(uv), uv_raw=t_(uv.copy()), response=t_(np.where(valid, 50.0, 0.0).astype(np.float32)),
+        octave=t_(octave), angle=t_(np.zeros((F,), np.float32)), desc=t_(desc.view(np.int32)),
+        valid=t_(valid), u_right=t_(u_right), depth=t_(depth),
+    )
+    return fr, lm_ids
+
+
 def _gaussian_taps(sigma: float) -> np.ndarray:
     """OpenCV's f32 Gaussian kernel for a float image and ksize (0, 0)."""
     n = int(round(sigma * 4 * 2 + 1)) | 1
@@ -102,6 +171,16 @@ def gaussian_blur_cv(img: np.ndarray, sigma: float) -> np.ndarray:
     return out
 
 
+@functools.lru_cache(maxsize=4)
+def _textures(n: int, p: int) -> np.ndarray:
+    """Landmark i's fixed p x p texture, seeded by its index, for i < n
+    (read-only; drawn once per scene size instead of once per frame)."""
+    out = np.stack([np.random.default_rng(1000 + i).uniform(60, 250, (p, p)) for i in range(n)])
+    out = out.astype(np.float32)
+    out.flags.writeable = False
+    return out
+
+
 def render_image(scene: SynthScene, frame: int, patch_r: int = 5) -> np.ndarray:
     """Rasterize landmarks as distinctive texture patches -> f32[H, W]."""
     cfg = scene.cfg
@@ -116,9 +195,30 @@ def render_image(scene: SynthScene, frame: int, patch_r: int = 5) -> np.ndarray:
     vis = (z > 0.1) & (u >= m) & (u < cfg.width - m) & (v >= m) & (v < cfg.height - m)
     # farther landmarks drawn first so near ones overwrite (painter's order)
     order = np.argsort(-z[vis])
+    tex = _textures(len(z), p)
     for i in np.nonzero(vis)[0][order]:
-        tex = np.random.default_rng(1000 + int(i)).uniform(60, 250, (p, p)).astype(np.float32)
         x0, y0 = int(round(u[i])), int(round(v[i]))
-        img[y0 - patch_r : y0 + patch_r + 1, x0 - patch_r : x0 + patch_r + 1] = tex
+        img[y0 - patch_r : y0 + patch_r + 1, x0 - patch_r : x0 + patch_r + 1] = tex[i]
     # camera PSF: smooth the texture so descriptors are stable to sub-pixel shifts
     return gaussian_blur_cv(img, 1.2)
+
+
+def render_depth(scene: SynthScene, frame: int, patch_r: int = 5) -> np.ndarray:
+    """Depth map aligned with ``render_image``: f32[H, W] metres, 0 = none.
+
+    Each landmark's patch carries its camera-frame depth, drawn in the same
+    painter's order as the intensity render."""
+    cfg = scene.cfg
+    R, t = scene.R[frame], scene.t[frame]
+    Xc = scene.xyz @ R.T + t
+    z = Xc[:, 2]
+    u = cfg.fx * Xc[:, 0] / np.maximum(z, 1e-9) + cfg.cx
+    v = cfg.fy * Xc[:, 1] / np.maximum(z, 1e-9) + cfg.cy
+    depth = np.zeros((cfg.height, cfg.width), np.float32)
+    m = patch_r + 1
+    vis = (z > 0.1) & (u >= m) & (u < cfg.width - m) & (v >= m) & (v < cfg.height - m)
+    order = np.argsort(-z[vis])
+    for i in np.nonzero(vis)[0][order]:
+        x0, y0 = int(round(u[i])), int(round(v[i]))
+        depth[y0 - patch_r : y0 + patch_r + 1, x0 - patch_r : x0 + patch_r + 1] = z[i]
+    return depth

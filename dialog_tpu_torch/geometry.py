@@ -1,6 +1,6 @@
 """Lie-group geometry and the pinhole camera model (port of ``dialog_tpu/geometry.py``).
 
-The subset the monocular tracking path uses. Conventions are the
+The subset the tracking paths use. Conventions are the
 reference's:
 
 * poses are world->camera ``(R, t)``: ``X_c = R @ X_w + t``;
@@ -199,6 +199,54 @@ def project_jacobians(R, t, X, fx, fy, cx, cy):
     eye = torch.eye(3, dtype=X.dtype, device=X.device).expand(Xc.shape + (3,))
     J_xc_pose = torch.cat([eye, -hat(Xc)], dim=-1)
     return uv, z, J_proj @ J_xc_pose, J_proj @ R
+
+
+def stereo_project_jacobians(R, t, X, fx, fy, cx, cy, bf):
+    """(uvr (..., 3), z, J_pose (..., 3, 6), J_point (..., 3, 3)) of the stereo
+    model, observation (u, v, uR) with uR = u - bf/z (g2o's
+    EdgeStereoSE3ProjectXYZOnlyPose)."""
+    Xc = se3_apply(R, t, X)
+    x, y, z = Xc[..., 0], Xc[..., 1], Xc[..., 2]
+    inv_z = 1.0 / _safe_z(z)
+    inv_z2 = inv_z * inv_z
+    u = fx * x * inv_z + cx
+    v = fy * y * inv_z + cy
+    uvr = torch.stack([u, v, u - bf * inv_z], dim=-1)
+    zero = torch.zeros_like(x)
+    J_proj = torch.stack(
+        [
+            torch.stack([fx * inv_z, zero, -fx * x * inv_z2], dim=-1),
+            torch.stack([zero, fy * inv_z, -fy * y * inv_z2], dim=-1),
+            torch.stack([fx * inv_z, zero, -fx * x * inv_z2 + bf * inv_z2], dim=-1),
+        ],
+        dim=-2,
+    )
+    eye = torch.eye(3, dtype=X.dtype, device=X.device).expand(Xc.shape + (3,))
+    J_xc_pose = torch.cat([eye, -hat(Xc)], dim=-1)
+    return uvr, z, J_proj @ J_xc_pose, J_proj @ R
+
+
+def stereo_project(R, t, X, fx, fy, cx, cy, bf):
+    """Stereo projection: ((u, v, uR), z) with uR = u - bf/z."""
+    uv, z = project(R, t, X, fx, fy, cx, cy)
+    zs = _safe_z(z)
+    uR = uv[..., 0] - zs.new_tensor(bf) / zs
+    return torch.cat([uv, uR[..., None]], dim=-1), z
+
+
+def reprojection_terms(R, t, X, uv, fx, fy, cx, cy, u_right=None, bf: float = 0.0):
+    """Residuals of the observed pixels ``uv`` against the projection of X,
+    with their Jacobians: (r (..., D), z, J_pose (..., D, 6), J_point (..., D, 3)).
+    D = 2; or 3 given ``u_right``, the stereo row uR_hat - uR, zero where
+    ``u_right < 0`` (a monocular observation)."""
+    if u_right is None:
+        uv_hat, z, J_pose, J_point = project_jacobians(R, t, X, fx, fy, cx, cy)
+        return uv_hat - uv, z, J_pose, J_point
+    uvr_hat, z, J_pose, J_point = stereo_project_jacobians(R, t, X, fx, fy, cx, cy, bf)
+    r = uvr_hat - torch.cat([uv, u_right[..., None]], dim=-1)
+    mono = (torch.arange(3, device=r.device) == 2) & (u_right < 0.0)[..., None]
+    return (torch.where(mono, 0.0, r), z, torch.where(mono[..., None], 0.0, J_pose),
+            torch.where(mono[..., None], 0.0, J_point))
 
 
 def backproject(uv, z, fx, fy, cx, cy):

@@ -2,8 +2,10 @@
 
 The reference's ``FrameArrays`` and ``MapState`` reach this module as what
 ``jax.device_get`` returns: NamedTuples (or plain dicts) of numpy arrays.
-``frame_from_numpy`` / ``map_from_numpy`` turn them into the port's tensors
-on a given device, so both engines can compute from the same map;
+``frame_from_numpy`` / ``map_from_numpy`` / ``problem_from_numpy`` turn them
+(and a local-BA ``BAProblem``) into the port's tensors on a given device, so
+both engines can compute from the same map; stereo fields (the keyframe
+store's ``u_right``/``depth``, a problem's ``obs_ur``) travel like any other;
 ``map_to_numpy`` goes the other way, as nested dicts of numpy arrays keyed by
 the reference's field names. Descriptor words travel as the reference's
 ``uint32`` and live in the port as ``int32`` bit-casts.
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from .containers import FrameArrays, KeyframeStore, LandmarkStore, MapState
+from .optim.local_ba import BAProblem
 
 
 def numpy_to_tensor(a, dtype=None, device="cpu") -> torch.Tensor:
@@ -59,6 +62,13 @@ def map_from_numpy(m, device="cpu") -> MapState:
         num_lms=numpy_to_tensor(_get(m, "num_lms"), device=device),
         lm_dropped=numpy_to_tensor(_get(m, "lm_dropped"), device=device),
     )
+
+
+def problem_from_numpy(prob, device="cpu") -> BAProblem:
+    """Reference BAProblem (numpy leaves) -> port BAProblem on ``device``;
+    an absent ``obs_ur`` (mono problem) or ``lm_opt`` stays None."""
+    return BAProblem(**{f: None if _get(prob, f) is None else numpy_to_tensor(_get(prob, f), device=device)
+                        for f in BAProblem._fields})
 
 
 def _tuple_to_numpy(t) -> dict:

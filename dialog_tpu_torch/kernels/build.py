@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -81,5 +82,8 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def load_all() -> dict[str, ctypes.CDLL]:
-    """Build and load every kernel source under csrc/."""
-    return {p.stem: load(p.stem) for p in sorted(CSRC.glob("*.cu"))}
+    """Build and load every kernel source under csrc/, one nvcc per source,
+    all started together."""
+    names = [p.stem for p in sorted(CSRC.glob("*.cu"))]
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(load, names)))

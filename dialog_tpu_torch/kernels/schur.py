@@ -9,10 +9,15 @@ observations [P, O]:
   side Hcc [C,6,6], g_c [C,6], g_red = sum Y Hll^-1 g_l [C,6] and
   S_pair = sum_p Y_p Hll_p^-1 Y_p^T [C,6,C,6].
 
+With ``obs_ur`` [P,O] (stereo right-x, < 0: monocular observation) and
+``bf > 0``, observations that carry a right-x add the third residual row
+uR_hat - uR with its own Jacobians, and their Huber bound is
+``delta2_stereo``; monocular observations keep two rows and ``delta2``
+(reference: g2o's mixed EdgeSE3ProjectXYZ / EdgeStereoSE3ProjectXYZ graphs).
+
 ``schur_reduce_plain`` is the same reduction in plain PyTorch (the
 reference's einsum path, ``_reduce_jnp``); it also takes the frozen-landmark
-mask ``lm_opt``, which the CUDA kernel does not. Monocular rows only: the
-CUDA path raises on stereo right-x observations.
+mask ``lm_opt``, which the CUDA kernel does not.
 """
 
 from __future__ import annotations
@@ -26,23 +31,35 @@ from . import common
 MAX_OBS = 16   # observations per landmark the CUDA kernel holds in shared memory
 
 
-def observation_terms(R, t, xyz, obs_cam, obs_uv, valid, fx, fy, cx, cy, cam_opt=None):
-    """Per-observation residuals r [P,O,2], pose Jacobians J_c [P,O,2,6],
-    point Jacobians J_l [P,O,2,3] and the mask ``valid & (depth > 1e-3)``.
-    Given ``cam_opt``, J_c is zero for the frozen cameras."""
-    from ..geometry import project_jacobians
+def observation_terms(R, t, xyz, obs_cam, obs_uv, valid, fx, fy, cx, cy, cam_opt=None,
+                      obs_ur=None, bf: float = 0.0):
+    """Per-observation residuals r [P,O,D], pose Jacobians J_c [P,O,D,6],
+    point Jacobians J_l [P,O,D,3] and the mask ``valid & (depth > 1e-3)``;
+    D = 2, or 3 with ``obs_ur`` and ``bf > 0`` (the uR row zero where
+    ``obs_ur < 0``). Given ``cam_opt``, J_c is zero for the frozen cameras."""
+    from ..geometry import reprojection_terms
 
     C = R.shape[0]
     safe = torch.clamp(obs_cam, 0, C - 1).long()
     X = xyz[:, None, :].expand(obs_uv.shape[:2] + (3,))
-    uv_hat, z, J_c, J_l = project_jacobians(R[safe], t[safe], X, fx, fy, cx, cy)
+    ur = obs_ur if obs_ur is not None and bf > 0 else None
+    r, z, J_c, J_l = reprojection_terms(R[safe], t[safe], X, obs_uv, fx, fy, cx, cy, ur, bf)
     if cam_opt is not None:
         J_c = torch.where(cam_opt[safe][..., None, None], J_c, 0.0)
-    return uv_hat - obs_uv, J_c, J_l, valid & (z > 1e-3)
+    return r, J_c, J_l, valid & (z > 1e-3)
+
+
+def observation_delta2(obs_ur, bf: float, delta2: float, delta2_stereo: float):
+    """Per-observation Huber bound: ``delta2_stereo`` where an observation
+    carries a right-x (stereo variant on), ``delta2`` elsewhere."""
+    if obs_ur is not None and bf > 0:
+        return torch.where(obs_ur >= 0.0, delta2_stereo, delta2)
+    return delta2
 
 
 def schur_reduce_plain(R, t, cam_opt, xyz, obs_cam, obs_uv, obs_w, lam, fx, fy, cx, cy,
-                       delta2: float = 5.991, lm_opt=None):
+                       delta2: float = 5.991, lm_opt=None, obs_ur=None, bf: float = 0.0,
+                       delta2_stereo: float = 7.815):
     """Plain PyTorch version of the fused reduction; returns
     (Hll_inv [P,3,3], g_l [P,3], Y [P,O,6,3], Hcc [C,6,6], g_c [C,6],
     g_red [C,6], S_pair [C,6,C,6])."""
@@ -50,9 +67,11 @@ def schur_reduce_plain(R, t, cam_opt, xyz, obs_cam, obs_uv, obs_w, lam, fx, fy, 
 
     C = R.shape[0]
     valid = (obs_w > 0.0) & (obs_cam >= 0) & (obs_cam < C)
-    r, J_c, J_l, ok = observation_terms(R, t, xyz, obs_cam, obs_uv, valid, fx, fy, cx, cy, cam_opt)
+    r, J_c, J_l, ok = observation_terms(R, t, xyz, obs_cam, obs_uv, valid, fx, fy, cx, cy, cam_opt,
+                                        obs_ur, bf)
     chi2 = torch.sum(r * r, -1) * obs_w
-    w = torch.where(ok, obs_w * huber_weight(chi2, delta2), 0.0)
+    d2 = observation_delta2(obs_ur, bf, delta2, delta2_stereo)
+    w = torch.where(ok, obs_w * huber_weight(chi2, d2), 0.0)
     if lm_opt is not None:
         J_l = torch.where(lm_opt[:, None, None, None], J_l, 0.0)
 
@@ -84,18 +103,18 @@ def schur_reduce_plain(R, t, cam_opt, xyz, obs_cam, obs_uv, obs_w, lam, fx, fy, 
 
 
 def schur_reduce(R, t, cam_opt, xyz, obs_cam, obs_uv, obs_w, lam, fx, fy, cx, cy,
-                 delta2: float = 5.991, lm_opt=None, obs_ur=None):
+                 delta2: float = 5.991, lm_opt=None, obs_ur=None, bf: float = 0.0,
+                 delta2_stereo: float = 7.815):
     """One fused BA reduction pass (see module doc). ``lam`` is a 0-d f32
-    tensor on the problem's device, so the LM loop never syncs the host."""
+    tensor on the problem's device, so the LM loop never syncs the host.
+    The stereo variant is on when ``obs_ur is not None and bf > 0``; on the
+    card it counts its launches as ``schur_reduce_stereo``."""
     if common.route(xyz) == "cpu":
-        if obs_ur is not None:
-            raise NotImplementedError("the port's Schur reduction has mono rows only")
         return schur_reduce_plain(R, t, cam_opt, xyz, obs_cam, obs_uv, obs_w, lam,
-                                  fx, fy, cx, cy, delta2, lm_opt)
+                                  fx, fy, cx, cy, delta2, lm_opt, obs_ur, bf, delta2_stereo)
     if lm_opt is not None:
         raise ValueError("the CUDA Schur kernel has no frozen-landmark (lm_opt) path")
-    if obs_ur is not None:
-        raise NotImplementedError("the CUDA Schur kernel has mono rows only (no uR row yet)")
+    stereo = obs_ur is not None and bf > 0
     from .build import load
 
     lib = load("schur")
@@ -110,7 +129,7 @@ def schur_reduce(R, t, cam_opt, xyz, obs_cam, obs_uv, obs_w, lam, fx, fy, cx, cy
         ("cam_opt", cam_opt, torch.bool, (C,)), ("xyz", xyz, torch.float32, (P, 3)),
         ("obs_cam", obs_cam, torch.int32, (P, O)), ("obs_uv", obs_uv, torch.float32, (P, O, 2)),
         ("obs_w", obs_w, torch.float32, (P, O)), ("lam", lam, torch.float32, ()),
-    ]:
+    ] + ([("obs_ur", obs_ur, torch.float32, (P, O))] if stereo else []):
         common.require(x, name, dt, shape, dev)
     hll_inv = torch.empty((P, 3, 3), dtype=torch.float32, device=dev)
     g_l = torch.empty((P, 3), dtype=torch.float32, device=dev)
@@ -121,15 +140,18 @@ def schur_reduce(R, t, cam_opt, xyz, obs_cam, obs_uv, obs_w, lam, fx, fy, cx, cy
     cam_out = torch.empty((n_out,), dtype=torch.float32, device=dev)
     fn = lib.schur_reduce_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_float] * 5 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_float] * 7 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p] * 6)
     err = fn(common.ptr(R), common.ptr(t), common.ptr(cam_opt), common.ptr(xyz),
-             common.ptr(obs_cam), common.ptr(obs_uv), common.ptr(obs_w), common.ptr(lam),
-             float(fx), float(fy), float(cx), float(cy), float(delta2), C, P, O,
+             common.ptr(obs_cam), common.ptr(obs_uv), common.ptr(obs_w),
+             common.ptr(obs_ur) if stereo else None, common.ptr(lam),
+             float(fx), float(fy), float(cx), float(cy), float(delta2), float(bf), float(delta2_stereo),
+             int(stereo), C, P, O,
              common.ptr(hll_inv), common.ptr(g_l), common.ptr(Y), common.ptr(part),
              common.ptr(cam_out), common.stream_ptr(dev))
-    common.launches["schur_reduce"] += 1
-    common.check(err, "schur_reduce")
+    name = "schur_reduce_stereo" if stereo else "schur_reduce"
+    common.launches[name] += 1
+    common.check(err, name)
     S_pair = cam_out[: 36 * C * C].reshape(C, 6, C, 6)
     Hcc = cam_out[36 * C * C : 36 * C * C + 36 * C].reshape(C, 6, 6)
     g_c = cam_out[36 * C * C + 36 * C : 36 * C * C + 42 * C].reshape(C, 6)

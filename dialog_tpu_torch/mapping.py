@@ -1,8 +1,8 @@
-"""Keyframe insertion and map growth (port of ``dialog_tpu/mapping.py``, mono path).
+"""Keyframe insertion and map growth (port of ``dialog_tpu/mapping.py``).
 
-Keyframe processing, epipolar triangulation of new points against the
-covisible neighbors, landmark fusion, descriptor/geometry refresh and
-culling. Each step maps a ``MapState`` to a new one. Scatters with possibly
+Keyframe processing, landmarks spawned from a stereo/RGB-D keyframe's depth,
+epipolar triangulation of new points against the covisible neighbors,
+landmark fusion, descriptor/geometry refresh and culling. Each step maps a ``MapState`` to a new one. Scatters with possibly
 repeated indices go through ``ops.scatter_set``, which resolves duplicates
 the way the reference's CPU scatter does (last write wins), so the result
 does not depend on CUDA's write order.
@@ -94,6 +94,31 @@ def alloc_landmarks(m: MapState, X, desc, octave, mask, ref_kf, cam_center, cfg:
     n_dropped = torch.sum(mask.to(torch.int32)) - n_alloc
     m = m._replace(lms=lms, num_lms=m.num_lms + n_alloc, lm_dropped=m.lm_dropped + n_dropped)
     return m, slot_of.to(torch.int32)
+
+
+def spawn_depth_landmarks(m: MapState, slot, cfg: EngineConfig) -> MapState:
+    """Create landmarks from a keyframe's depth channel (stereo/RGB-D):
+    every valid feature without a landmark whose depth is below
+    ``th_depth x baseline`` (reference: Tracking::CreateNewKeyFrame's close
+    points, and the whole of StereoInitialization for the first keyframe)."""
+    kfs = m.kfs
+    L = m.lms.xyz.shape[0]
+    dev = kfs.uv.device
+    depth = kfs.depth[slot]
+    # the close-point bound in f32, as the reference computes it
+    close = cfg.th_depth * torch.clamp(torch.tensor(cfg.baseline, dtype=torch.float32, device=dev), min=1e-6)
+    cand = kfs.feat_valid[slot] & (kfs.obs_lm[slot] < 0) & (depth > 0.0) & (depth < close)
+    R, t = kfs.R[slot], kfs.t[slot]
+    c = torch.tensor([cfg.cx, cfg.cy], dtype=torch.float32, device=dev)
+    f = torch.tensor([cfg.fx, cfg.fy], dtype=torch.float32, device=dev)
+    xn = (kfs.uv[slot] - c) / f
+    Xc = torch.cat([xn * depth[:, None], depth[:, None]], dim=-1)
+    Rinv, tinv = geo.se3_inv(R, t)
+    Xw = geo.se3_apply(Rinv, tinv, Xc)
+    m, slot_of = alloc_landmarks(m, Xw, kfs.desc[slot], kfs.octave[slot], cand, slot, -R.T @ t, cfg)
+    obs_lm = _set_row(m.kfs.obs_lm, slot, torch.where(slot_of < L, slot_of, m.kfs.obs_lm[slot]))
+    lms = m.lms._replace(n_obs=ops.scatter_add(m.lms.n_obs, slot_of, 1))
+    return m._replace(kfs=m.kfs._replace(obs_lm=obs_lm), lms=lms)
 
 
 def _fundamental_from_poses(R1, t1, R2, t2, Kmat):
@@ -377,12 +402,16 @@ def cull_landmarks(m: MapState, cur_kf, cfg: EngineConfig) -> MapState:
 
 
 def process_new_keyframe(m: MapState, frame: FrameArrays, R, t, lm_ids, frame_id, timestamp,
-                         slot: int, parent, cfg: EngineConfig, n_neighbors: int = 4) -> MapState:
-    """The mono keyframe pipeline: insert, triangulate and fuse against the
-    top covisible neighbors (plus ``cfg.kf_fuse_two_hop`` of their best
-    neighbors), refresh, cull."""
+                         slot: int, parent, cfg: EngineConfig, spawn_depth: bool = False,
+                         n_neighbors: int = 4) -> MapState:
+    """The keyframe pipeline: insert, spawn depth landmarks (stereo/RGB-D,
+    ``spawn_depth``), triangulate and fuse against the top covisible
+    neighbors (plus ``cfg.kf_fuse_two_hop`` of their best neighbors),
+    refresh, cull."""
     n_two_hop = cfg.kf_fuse_two_hop
     m = insert_keyframe(m, frame, R, t, lm_ids, frame_id, timestamp, slot, parent, cfg)
+    if spawn_depth:
+        m = spawn_depth_landmarks(m, slot, cfg)
 
     K = m.kfs.valid.shape[0]
     w = torch.where(m.kfs.valid, m.covis[slot], 0).clone()

@@ -1,12 +1,15 @@
 """Windowed bundle adjustment with a blocked Schur complement (port of
-``dialog_tpu/optim/local_ba.py``, monocular rows).
+``dialog_tpu/optim/local_ba.py``).
 
 The window is the covisibility neighborhood of a center keyframe; other
 keyframes observing the window's landmarks contribute residuals with frozen
 poses. Observations are bucketed per landmark into fixed-width lists
 [P, O]; each LM iteration runs one fused reduction (kernel C on the card,
 its plain version on the CPU), solves the dense reduced camera system and
-back-substitutes the landmarks.
+back-substitutes the landmarks. With ``cfg.bf > 0`` the problem carries each
+observation's stereo right-x, and observations that have one get the 3-row
+(u, v, uR) residual with the Huber bound ``cfg.chi2_stereo`` (reference:
+g2o's EdgeStereoSE3ProjectXYZ in LocalBundleAdjustment).
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ class BAProblem(NamedTuple):
     obs_w: torch.Tensor       # f32[P, O] information (inv sigma2)
     obs_ok: torch.Tensor      # bool[P, O]
     obs_feat: torch.Tensor    # i32[P, O] feature index (for outlier write-back)
-    obs_ur: torch.Tensor | None = None   # stereo right-x (not carried by the port yet)
+    obs_ur: torch.Tensor | None = None   # f32[P, O] stereo right-x, < 0 = mono (None: mono problem)
     lm_opt: torch.Tensor | None = None   # landmark freeze mask (None = all optimized)
 
 
@@ -84,8 +87,6 @@ def bucket_observations(li: torch.Tensor, P: int, O: int):
 
 def build_problem(m: MapState, center_kf, cfg: EngineConfig) -> BAProblem:
     """Gather the covisibility window + fixed observers + their observations."""
-    if cfg.bf > 0:
-        raise NotImplementedError("the port's local BA carries mono rows only")
     K, F = m.kfs.obs_lm.shape
     L = m.lms.xyz.shape[0]
     W, Wf = cfg.max_local_kfs, cfg.max_fixed_kfs
@@ -135,18 +136,35 @@ def build_problem(m: MapState, center_kf, cfg: EngineConfig) -> BAProblem:
     obs_oct = m.kfs.octave[safe_slots][safe_cam, obs_feat.long()]
     base = torch.tensor(cfg.scale_factor, dtype=torch.float32, device=dev)
     obs_w = torch.where(obs_ok, torch.pow(base, -2.0 * obs_oct.to(torch.float32)), 0.0)
+    obs_ur = None
+    if cfg.bf > 0:   # mono configs never gather the right-x
+        obs_ur = torch.where(obs_ok, m.kfs.u_right[safe_slots][safe_cam, obs_feat.long()], -1.0)
 
     return BAProblem(
         cam_slots=cam_slots, cam_opt=cam_opt,
         R=m.kfs.R[safe_slots], t=m.kfs.t[safe_slots],
         lm_ids=lm_ids, xyz=m.lms.xyz[torch.clamp(lm_ids, 0, L - 1).long()],
-        obs_cam=obs_cam, obs_uv=obs_uv, obs_w=obs_w, obs_ok=obs_ok, obs_feat=obs_feat,
+        obs_cam=obs_cam, obs_uv=obs_uv, obs_w=obs_w, obs_ok=obs_ok, obs_feat=obs_feat, obs_ur=obs_ur,
     )
 
 
-def _residuals(prob: BAProblem, R, t, xyz, fx, fy, cx, cy):
-    """All-observation residuals/Jacobians [P, O, 2, ...] and the valid mask."""
-    return schur_kernel.observation_terms(R, t, xyz, prob.obs_cam, prob.obs_uv, prob.obs_ok, fx, fy, cx, cy)
+def _use_stereo(prob: BAProblem, cfg: EngineConfig) -> bool:
+    """Does this problem carry stereo rows?"""
+    return prob.obs_ur is not None and cfg.bf > 0
+
+
+def _residuals(prob: BAProblem, R, t, xyz, fx, fy, cx, cy, bf: float = 0.0):
+    """All-observation residuals/Jacobians [P, O, D, ...] (D = 2 mono, 3 with
+    ``bf > 0`` and ``prob.obs_ur``) and the valid mask."""
+    return schur_kernel.observation_terms(R, t, xyz, prob.obs_cam, prob.obs_uv, prob.obs_ok, fx, fy, cx, cy,
+                                          obs_ur=prob.obs_ur, bf=bf)
+
+
+def _delta2_of(prob: BAProblem, cfg: EngineConfig, chi2_th: float):
+    """Per-observation Huber delta^2: ``cfg.chi2_stereo`` for 3-row edges
+    (reference: sqrt(5.991) mono, sqrt(7.815) stereo)."""
+    bf = cfg.bf if _use_stereo(prob, cfg) else 0.0
+    return schur_kernel.observation_delta2(prob.obs_ur, bf, chi2_th, cfg.chi2_stereo)
 
 
 def _robust_weights(r, w_info, ok, delta2):
@@ -164,21 +182,23 @@ def solve_ba(prob: BAProblem, cfg: EngineConfig, iters: int = 10, chi2_th: float
 
     Returns (R [C,3,3], t [C,3], xyz [P,3], final robust cost). The
     reduction is ``kernels.schur.schur_reduce``: kernel C for CUDA tensors,
-    its plain version (which also covers ``lm_opt``) for CPU tensors.
+    its plain version (which also covers ``lm_opt``) for CPU tensors; it
+    carries the stereo (uR) row when the problem has one.
     """
-    if prob.obs_ur is not None:
-        raise NotImplementedError("the port's local BA carries mono rows only")
     fx, fy, cx, cy = cfg.fx, cfg.fy, cfg.cx, cfg.cy
+    use_stereo = _use_stereo(prob, cfg)
+    bf = cfg.bf if use_stereo else 0.0
+    delta2 = _delta2_of(prob, cfg, chi2_th)
     C = prob.cam_slots.shape[0]
-    dev = prob.xyz.device
+    dev, dt = prob.xyz.device, prob.xyz.dtype
     cam_opt6 = prob.cam_opt.repeat_interleave(6)
-    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    eye6 = torch.eye(6, dtype=dt, device=dev)
     ar = torch.arange(C, device=dev)
     safe_cam = torch.clamp(prob.obs_cam, 0, C - 1).long()
 
     def cost_of(R, t, xyz):
-        r, _, _, ok = _residuals(prob, R, t, xyz, fx, fy, cx, cy)
-        _, cost, _ = _robust_weights(r, prob.obs_w, ok, chi2_th)
+        r, _, _, ok = _residuals(prob, R, t, xyz, fx, fy, cx, cy, bf)
+        _, cost, _ = _robust_weights(r, prob.obs_w, ok, delta2)
         # cheirality penalty: an observation pushed behind its camera would
         # otherwise drop out of the masked cost and look like an improvement
         n_behind = torch.sum((prob.obs_ok & ~ok).to(torch.float32))
@@ -188,10 +208,11 @@ def solve_ba(prob: BAProblem, cfg: EngineConfig, iters: int = 10, chi2_th: float
         Hll_inv, g_l, Y, Hcc, g_c, g_red, S_pair = schur_kernel.schur_reduce(
             R, t, prob.cam_opt, xyz, prob.obs_cam, prob.obs_uv, prob.obs_w, lam,
             fx, fy, cx, cy, delta2=chi2_th, lm_opt=prob.lm_opt,
+            obs_ur=prob.obs_ur if use_stereo else None, bf=bf, delta2_stereo=cfg.chi2_stereo,
         )
         dcc = torch.diagonal(Hcc, dim1=-2, dim2=-1)
         Hcc_d = Hcc + (lam * torch.clamp(dcc, min=1e-9) + 1e-9)[..., None] * eye6
-        S = torch.zeros((C, 6, C, 6), dtype=torch.float32, device=dev)
+        S = torch.zeros((C, 6, C, 6), dtype=dt, device=dev)
         S[ar, :, ar, :] = Hcc_d
         S = (S - S_pair).reshape(6 * C, 6 * C)
         rhs = -(g_c - g_red).reshape(-1)
@@ -207,7 +228,7 @@ def solve_ba(prob: BAProblem, cfg: EngineConfig, iters: int = 10, chi2_th: float
     R = geo.orthogonalize(prob.R)
     t, xyz = prob.t, prob.xyz
     cost = cost_of(R, t, xyz)
-    lam = torch.tensor(lam0, dtype=torch.float32, device=dev)
+    lam = torch.tensor(lam0, dtype=dt, device=dev)
     for _ in range(iters):
         R_new, t_new, xyz_new = step(R, t, xyz, lam)
         new_cost = cost_of(R_new, t_new, xyz_new)
@@ -231,9 +252,11 @@ def write_back(m: MapState, prob: BAProblem, R, t, xyz, cfg: EngineConfig,
     lm_tgt = torch.where(prob.lm_ids < L, prob.lm_ids, L)
     lms = m.lms._replace(xyz=ops.scatter_set(m.lms.xyz, lm_tgt, xyz))
 
-    r, _, _, ok = _residuals(prob, R, t, xyz, cfg.fx, cfg.fy, cfg.cx, cfg.cy)
+    # outliers at the optimized state; stereo edges classify against chi2_stereo
+    bf = cfg.bf if _use_stereo(prob, cfg) else 0.0
+    r, _, _, ok = _residuals(prob, R, t, xyz, cfg.fx, cfg.fy, cfg.cx, cfg.cy, bf)
     chi2 = torch.sum(r * r, -1) * prob.obs_w
-    bad = ok & (chi2 > chi2_th)
+    bad = ok & (chi2 > _delta2_of(prob, cfg, chi2_th))
     cam_slot_of_obs = prob.cam_slots[torch.clamp(prob.obs_cam, 0, C - 1).long()]
     k_idx = torch.where(bad, cam_slot_of_obs, K)
     obs_lm = ops.scatter_set2(kfs.obs_lm, k_idx, prob.obs_feat, INVALID_ID)

@@ -1,18 +1,27 @@
-"""The main path's workload, and where its time goes on one CUDA card.
+"""The port's workloads, and where their time goes on one CUDA card.
 
-    python3 -m dialog_tpu_torch.profile_main_path [--out PATH]
+    python3 -m dialog_tpu_torch.profile_main_path [--config mono|stereo|rgbd] [--out PATH]
 
-The workload (also driven by ``chip_smoke.py``): ``Engine.track_image`` over
-the first 56 frames of the rendered sweep ``make_scene(seed=3,
-n_points=2500, n_frames=168)`` at bench.py's TUM-class 640x480 monocular
-configuration; the measured window is frames 16-55.
+The workloads (also driven by ``chip_smoke.py``):
 
-Three runs of that workload, each on a fresh engine:
+* ``mono``: ``Engine.track_image`` over the first 56 frames of the rendered
+  sweep ``make_scene(seed=3, n_points=2500, n_frames=168)`` at bench.py's
+  TUM-class 640x480 monocular configuration; measured window frames 16-55;
+* ``stereo``: ``Engine.track_stereo`` over the first 48 rendered stereo
+  pairs of bench.py's ``kitti_stereo`` workload (``make_scene(seed=7,
+  n_points=6000, n_frames=168)``, the right camera ``baseline`` to the
+  right) at the KITTI00 preset with bench.py's capacities, 1241x376 and
+  2000 features; measured window frames 16-47;
+* ``rgbd``: ``Engine.track_rgbd`` over 24 frames of the mono sweep scaled
+  by ``RGBD_SCALE`` to indoor depths, with its depth map in TUM's units, at
+  the TUM1 RGB-D settings; measured window frames 16-23.
+
+Three runs of the chosen workload, each on a fresh engine:
 
 1. plain: the window's wall time on the host clock, nothing added;
-2. phases: the engine's four tensor phases (feature extraction, the tracking
-   step, the keyframe pipeline, local BA) timed on the host clock, with the
-   device synchronised at every phase boundary;
+2. phases: the engine's tensor phases (feature extraction, stereo matching
+   for ``stereo``, the tracking step, the keyframe pipeline, local BA) timed
+   on the host clock, with the device synchronised at every phase boundary;
 3. profiled: the window under ``torch.profiler``, which counts kernel
    launches, stream synchronisations and ``.item()`` reads, and gives the
    device's busy time as the union of its kernel, copy and set intervals.
@@ -30,10 +39,14 @@ import pathlib
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 N_FRAMES = 56
 FPS_FIRST = 16
+STEREO_FRAMES = 48
+RGBD_FRAMES = 24
+RGBD_SCALE = 0.25   # sweep depths 4-12 -> 1-3 m, inside th_depth x baseline (3.09 m)
 SYNC_ROWS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "aten::item", "cudaMemcpyAsync")
 
 
@@ -57,30 +70,77 @@ def render_frames(cfg, n: int = N_FRAMES):
     return scene, [synth.render_image(scene, i) for i in range(n)]
 
 
-def _track(eng, images, first: int, last: int) -> float:
-    """Track frames [first, last); returns the wall seconds, device synchronised."""
+def kitti_stereo_config():
+    """bench.py's ``kitti_stereo`` configuration (``bench.py:158``)."""
+    from .config import KITTI00
+
+    return KITTI00.replace(max_keyframes=256, max_landmarks=32768)
+
+
+def render_stereo_frames(cfg, n: int = STEREO_FRAMES):
+    """bench.py's stereo scene and its first ``n`` (left, right) pairs."""
+    from .datasets import synth
+
+    scene = synth.make_scene(seed=7, n_points=6000, n_frames=168, cfg=cfg)
+    scene_r = scene._replace(t=scene.t - np.array([cfg.baseline, 0.0, 0.0], np.float32))
+    return scene, [(synth.render_image(scene, i), synth.render_image(scene_r, i)) for i in range(n)]
+
+
+def tum_rgbd_config():
+    """TUM-class RGB-D: the mono configuration with ORB-SLAM2's
+    ``Examples/RGB-D/TUM1.yaml`` depth settings (Camera.bf 40, ThDepth 40,
+    DepthMapFactor 5000). No lens distortion: the renderer draws a pinhole
+    image."""
+    from .config import Sensor
+
+    return tum_mono_config().replace(sensor=Sensor.RGBD, bf=40.0, th_depth=40.0, depth_map_factor=5000.0)
+
+
+def render_rgbd_frames(cfg, n: int = RGBD_FRAMES):
+    """The mono sweep scaled by RGBD_SCALE, and its first ``n`` (image,
+    depth map x depth_map_factor) pairs."""
+    from .datasets import synth
+
+    scene = synth.make_scene(seed=3, n_points=2500, n_frames=168, cfg=cfg)
+    scene = scene._replace(xyz=scene.xyz * np.float32(RGBD_SCALE), t=scene.t * np.float32(RGBD_SCALE))
+    return scene, [(synth.render_image(scene, i), synth.render_depth(scene, i) * np.float32(cfg.depth_map_factor))
+                   for i in range(n)]
+
+
+# name -> (config, frames, Engine entry point, frames per second of the stream)
+WORKLOADS = {
+    "mono": (tum_mono_config, render_frames, "track_image", 30.0),
+    "stereo": (kitti_stereo_config, render_stereo_frames, "track_stereo", 10.0),
+    "rgbd": (tum_rgbd_config, render_rgbd_frames, "track_rgbd", 30.0),
+}
+
+
+def track_frames(eng, method: str, frames, first: int, last: int, fps: float) -> float:
+    """Feed frames [first, last) to ``eng.<method>``; returns the wall
+    seconds, device synchronised."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(first, last):
-        eng.track_image(images[i], float(i) / 30.0)
+        x = frames[i]
+        getattr(eng, method)(*(x if isinstance(x, tuple) else (x,)), float(i) / fps)
     torch.cuda.synchronize()
     return time.perf_counter() - t0
 
 
-def plain_run(cfg, images, dev) -> float:
+def plain_run(cfg, frames, dev, method="track_image", fps=30.0) -> float:
     from .system import Engine
 
     eng = Engine(cfg, device=dev)
-    _track(eng, images, 0, FPS_FIRST)
-    return _track(eng, images, FPS_FIRST, len(images))
+    track_frames(eng, method, frames, 0, FPS_FIRST, fps)
+    return track_frames(eng, method, frames, FPS_FIRST, len(frames), fps)
 
 
-def phase_run(cfg, images, dev) -> dict:
+def phase_run(cfg, frames, dev, method="track_image", fps=30.0) -> dict:
     """Window wall time and each phase's synchronised host time."""
     from . import mapping, system, tracking
 
     spent: dict[str, float] = {}
-    originals = [(system, "extract_features"), (tracking, "fused_track_step"),
+    originals = [(system, "extract_features"), (system, "stereo_match_frames"), (tracking, "fused_track_step"),
                  (mapping, "process_new_keyframe"), (system, "local_bundle_adjustment")]
     saved = [getattr(mod, name) for mod, name in originals]
 
@@ -95,12 +155,12 @@ def phase_run(cfg, images, dev) -> dict:
         return wrapper
 
     eng = system.Engine(cfg, device=dev)
-    _track(eng, images, 0, FPS_FIRST)
+    track_frames(eng, method, frames, 0, FPS_FIRST, fps)
     kf0 = eng.kf_count
     try:
         for (mod, name), fn in zip(originals, saved):
             setattr(mod, name, timed(name, fn))
-        total = _track(eng, images, FPS_FIRST, len(images))
+        total = track_frames(eng, method, frames, FPS_FIRST, len(frames), fps)
     finally:
         for (mod, name), fn in zip(originals, saved):
             setattr(mod, name, fn)
@@ -120,15 +180,15 @@ def _busy_seconds(events) -> float:
     return busy * 1e-6
 
 
-def profiled_run(cfg, images, dev) -> dict:
+def profiled_run(cfg, frames, dev, method="track_image", fps=30.0) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from .system import Engine
 
     eng = Engine(cfg, device=dev)
-    _track(eng, images, 0, FPS_FIRST)
+    track_frames(eng, method, frames, 0, FPS_FIRST, fps)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = _track(eng, images, FPS_FIRST, len(images))
+        wall = track_frames(eng, method, frames, FPS_FIRST, len(frames), fps)
     events = prof.events()
     rows = prof.key_averages()
     device_rows = sorted((r for r in rows if r.device_time_total > 0), key=lambda r: -r.device_time_total)
@@ -147,6 +207,7 @@ def profiled_run(cfg, images, dev) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", choices=sorted(WORKLOADS), default="mono", help="the workload (module doc)")
     ap.add_argument("--out", default=None, help="also write the JSON result here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -158,14 +219,15 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     build.load_all()
-    cfg = tum_mono_config()
-    _, images = render_frames(cfg)
-    plain_s = plain_run(cfg, images, dev)
-    phases = phase_run(cfg, images, dev)
-    prof = profiled_run(cfg, images, dev)
-    n = len(images) - FPS_FIRST
+    make_cfg, make_frames, method, fps = WORKLOADS[args.config]
+    cfg = make_cfg()
+    _, frames = make_frames(cfg)
+    plain_s = plain_run(cfg, frames, dev, method, fps)
+    phases = phase_run(cfg, frames, dev, method, fps)
+    prof = profiled_run(cfg, frames, dev, method, fps)
+    n = len(frames) - FPS_FIRST
     out = {
-        "card": card, "frames": n, "plain_wall_s": plain_s, "frames_per_s": n / plain_s,
+        "card": card, "config": args.config, "frames": n, "plain_wall_s": plain_s, "frames_per_s": n / plain_s,
         "phases": phases, "profiled": prof,
         "idle_share_profiled": 1.0 - prof["device_busy_s"] / prof["wall_s"],
         "idle_share_plain": 1.0 - prof["device_busy_s"] / plain_s,

@@ -1,4 +1,8 @@
-"""Engine facade: the monocular, per-frame SLAM engine (port of ``dialog_tpu/system.py``).
+"""Engine facade: the per-frame SLAM engine (port of ``dialog_tpu/system.py``).
+
+Monocular, stereo and RGB-D entry points. A monocular engine bootstraps
+from two views; a stereo or RGB-D one from its first frame with enough
+depth, and tracks and bundle-adjusts with the stereo (uR) rows.
 
 The host runs the scalar state machine (NOT_INITIALIZED / OK / LOST) and
 calls the tensor steps; the map lives on ``device`` as a ``MapState``. Per
@@ -25,6 +29,7 @@ from .containers import INVALID_ID, FrameArrays, MapMeta, MapState, empty_map, p
 from .frontend import extract_features
 from .init2view import initialize_two_view
 from .optim.local_ba import local_bundle_adjustment
+from .stereo import depth_from_rgbd, stereo_match_frames
 
 NOT_INITIALIZED = "NOT_INITIALIZED"
 OK = "OK"
@@ -53,19 +58,17 @@ def _host(x) -> np.ndarray:
 
 
 class Engine:
-    """Monocular SLAM engine on one device.
+    """SLAM engine on one device.
 
     Usage::
 
         eng = Engine(config, device="cuda")
         for img, ts in frames:
-            rec = eng.track_image(img, ts)
+            rec = eng.track_image(img, ts)   # track_stereo / track_rgbd by cfg.sensor
         eng.save_trajectory_tum(path)
     """
 
     def __init__(self, cfg: EngineConfig, device="cpu"):
-        if cfg.sensor != Sensor.MONOCULAR:
-            raise NotImplementedError("the port's engine is monocular")
         self.cfg = cfg
         self.device = torch.device(device)
         self.m: MapState = empty_map(cfg, device=self.device)
@@ -105,6 +108,23 @@ class Engine:
         img = torch.as_tensor(img, dtype=torch.float32).to(self.device)
         frame = self._undistort(extract_features(img, self.cfg))
         return self.track_features(frame, timestamp)
+
+    def track_stereo(self, img_left, img_right, timestamp: float) -> FrameRecord:
+        """Stereo pair entry (reference: System::TrackStereo)."""
+        img_left = torch.as_tensor(img_left, dtype=torch.float32).to(self.device)
+        img_right = torch.as_tensor(img_right, dtype=torch.float32).to(self.device)
+        left = extract_features(img_left, self.cfg)
+        right = extract_features(img_right, self.cfg)
+        left = stereo_match_frames(left, right, self.cfg, img_left=img_left, img_right=img_right)
+        return self.track_features(self._undistort(left), timestamp)
+
+    def track_rgbd(self, img, depth_img, timestamp: float) -> FrameRecord:
+        """RGB-D entry (reference: System::TrackRGBD); ``depth_img`` in the
+        sensor's units (metres x cfg.depth_map_factor)."""
+        img = torch.as_tensor(img, dtype=torch.float32).to(self.device)
+        depth_img = torch.as_tensor(depth_img, dtype=torch.float32).to(self.device)
+        frame = depth_from_rgbd(extract_features(img, self.cfg), depth_img, self.cfg)
+        return self.track_features(self._undistort(frame), timestamp)
 
     def track_features(self, frame: FrameArrays, timestamp: float) -> FrameRecord:
         """Track a pre-extracted feature frame (also the synthetic-data entry)."""
@@ -265,6 +285,8 @@ class Engine:
 
     def _initialize(self, frame: FrameArrays, ts: float) -> FrameRecord:
         cfg = self.cfg
+        if cfg.sensor != Sensor.MONOCULAR:
+            return self._initialize_depth(frame, ts)
         n_valid = int(frame.valid.sum())
         if self._init_frame is None or n_valid < cfg.init_min_features:
             self._set_init_frame(frame, ts, n_valid)
@@ -328,6 +350,31 @@ class Engine:
         self.last_kf_tracked = n_pts
         return self._record(ts, self._last_R, self._last_t, n_pts, ref_kf=1)
 
+    def _initialize_depth(self, frame: FrameArrays, ts: float) -> FrameRecord:
+        """Stereo/RGB-D bootstrap: the first frame with enough depth becomes
+        keyframe 0 and spawns landmarks directly (reference: StereoInitialization)."""
+        cfg = self.cfg
+        if int((frame.valid & (frame.depth > 0)).sum()) < cfg.init_min_features:
+            return self._record(ts, np.eye(3), np.zeros(3))
+        dev = self.device
+        eye3 = torch.eye(3, dtype=torch.float32, device=dev)
+        zero3 = torch.zeros(3, dtype=torch.float32, device=dev)
+        lm_none = torch.full((frame.uv.shape[0],), INVALID_ID, dtype=torch.int32, device=dev)
+        m = mapping.insert_keyframe(self.m, frame, eye3, zero3, lm_none, self.frame_id, ts, 0, -1, cfg)
+        self.m = mapping.spawn_depth_landmarks(m, 0, cfg)
+        self.kf_count = 1
+        self._mark_kf_slot(0)
+        self.ref_kf = 0
+        self.last_kf_frame_id = self.frame_id
+        self.state = OK
+        self._last_lm_ids = self.m.kfs.obs_lm[0]
+        self._last_R = np.eye(3, dtype=np.float32)
+        self._last_t = np.zeros(3, dtype=np.float32)
+        self._vel = None
+        n_pts = int((self._last_lm_ids >= 0).sum())
+        self.last_kf_tracked = n_pts
+        return self._record(ts, self._last_R, self._last_t, n_pts, ref_kf=0)
+
     def _set_init_frame(self, frame, ts, n_valid):
         self._init_frame = frame if n_valid >= self.cfg.init_min_features else None
         self._init_ts = ts
@@ -348,6 +395,7 @@ class Engine:
         R_cur_d, t_cur_d, lm_ids, packed, counts = tracking.fused_track_step(
             self.m, self._last_lm_ids, frame, self._tensor(R_pred), self._tensor(t_pred),
             self._tensor(self._last_R), self._tensor(self._last_t), self.ref_kf, cfg,
+            use_stereo=cfg.sensor != Sensor.MONOCULAR and cfg.bf > 0,
         )
         self.m = tracking.apply_track_counts(self.m, counts)
         p = _host(packed)                # the per-frame host read
@@ -402,7 +450,7 @@ class Engine:
             return
         self.m = mapping.process_new_keyframe(
             self.m, frame, R, t, lm_ids, self.frame_id, ts, slot, self.ref_kf, cfg,
-            n_neighbors=cfg.kf_tri_neighbors,
+            spawn_depth=cfg.sensor != Sensor.MONOCULAR, n_neighbors=cfg.kf_tri_neighbors,
         )
         if self.kf_count >= 2:
             self.m = local_bundle_adjustment(self.m, slot, cfg, iters=cfg.local_ba_iters)

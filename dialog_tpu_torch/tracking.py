@@ -169,14 +169,18 @@ def apply_track_counts(m: MapState, counts) -> MapState:
 
 
 def fused_track_step(m: MapState, last_lm_ids, frame: FrameArrays, R_pred, t_pred,
-                     R_last, t_last, ref_kf, cfg: EngineConfig):
+                     R_last, t_last, ref_kf, cfg: EngineConfig, use_stereo: bool = False):
     """The whole per-frame tracking pipeline.
 
-    Returns (R, t, lm_ids, packed f32[26], (vis_inc, found_inc)) with the
-    reference's packed layout: R (9), t (3), R_rel to ref KF (9), t_rel (3),
-    n_tracked, n_motion_matched.
+    With ``use_stereo`` both pose optimizations add the uR row of features
+    that carry a right-x, and every row of the frame is gated at
+    ``cfg.chi2_stereo`` (the final outlier filter stays two-row), as the
+    reference does. Returns (R, t, lm_ids, packed f32[26], (vis_inc,
+    found_inc)) with the reference's packed layout: R (9), t (3), R_rel to
+    ref KF (9), t_rel (3), n_tracked, n_motion_matched.
     """
-    chi2 = cfg.chi2_mono
+    chi2 = cfg.chi2_stereo if use_stereo else cfg.chi2_mono
+    stereo = dict(u_right=frame.u_right, bf=cfg.bf, use_stereo=use_stereo)
     lm_ids, n_mm = _motion_match(m, last_lm_ids, frame, R_pred, t_pred, cfg, cfg.motion_search_radius)
     R0, t0 = R_pred, t_pred
     # host branch on the match count (the reference's lax.cond): one sync
@@ -192,14 +196,14 @@ def fused_track_step(m: MapState, last_lm_ids, frame: FrameArrays, R_pred, t_pre
 
     X, uv, inv_s2, valid = gather_track_problem(m, frame, lm_ids, cfg)
     res = pose_optimization(R0, t0, X, uv, inv_s2, valid, cfg.fx, cfg.fy, cfg.cx, cfg.cy,
-                            chi2_th=chi2, rounds=cfg.pose_opt_rounds, iters=cfg.pose_opt_iters)
+                            chi2_th=chi2, rounds=cfg.pose_opt_rounds, iters=cfg.pose_opt_iters, **stereo)
     lm_ids = torch.where(res.inlier, lm_ids, INVALID_ID)
 
     local_ids = local_landmark_ids(m, ref_kf, cfg)
     lm_ids, _, in_frustum = track_local_map_match(m, local_ids, frame, lm_ids, res.R, res.t, cfg)
     X, uv, inv_s2, valid = gather_track_problem(m, frame, lm_ids, cfg)
     res2 = pose_optimization(res.R, res.t, X, uv, inv_s2, valid, cfg.fx, cfg.fy, cfg.cx, cfg.cy,
-                             chi2_th=chi2, rounds=2, iters=cfg.pose_opt_iters)
+                             chi2_th=chi2, rounds=2, iters=cfg.pose_opt_iters, **stereo)
     lm_ids, n_tracked = filter_outlier_assoc(res2.R, res2.t, m, frame, lm_ids, cfg, chi2_th=chi2)
 
     L = m.lms.xyz.shape[0]

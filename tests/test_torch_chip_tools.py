@@ -5,6 +5,7 @@ Tolerances: exact (interval arithmetic on given numbers, one division).
 
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
@@ -40,3 +41,31 @@ def test_main_path_workload_is_the_tum_mono_configuration():
     assert (cfg.width, cfg.height, cfg.n_features, cfg.max_features, cfg.n_levels) == (640, 480, 1000, 1024, 8)
     assert (cfg.max_local_kfs, cfg.max_fixed_kfs, cfg.max_local_lms, cfg.max_obs_per_lm) == (16, 16, 2048, 8)
     assert (pm.N_FRAMES, pm.FPS_FIRST) == (56, 16)
+
+
+def test_stereo_and_rgbd_workloads():
+    """The stereo path is bench.py's kitti_stereo cell at full width; the RGB-D
+    path the TUM-class mono configuration with TUM1.yaml's depth settings."""
+    st = pm.kitti_stereo_config()
+    assert (st.width, st.height, st.n_features, st.max_features, st.bf) == (1241, 376, 2000, 2048, 386.1448)
+    assert (st.max_local_kfs + st.max_fixed_kfs, st.max_local_lms, st.max_obs_per_lm) == (64, 8192, 12)
+    assert (st.max_keyframes, st.max_landmarks, st.local_ba_iters, st.sensor.name) == (256, 32768, 8, "STEREO")
+    rg = pm.tum_rgbd_config()
+    assert (rg.sensor.name, rg.bf, rg.th_depth, rg.depth_map_factor) == ("RGBD", 40.0, 40.0, 5000.0)
+    assert (rg.width, rg.height, rg.max_local_lms) == (640, 480, 2048)
+    # the scaled sweep lies within th_depth x baseline, so the first frame spawns landmarks
+    scene, frames = pm.render_rgbd_frames(rg, n=1)
+    Xc = scene.xyz @ scene.R[0].T + scene.t[0]
+    assert float(np.mean(Xc[:, 2] < rg.th_depth * rg.baseline)) > 0.7
+    img, depth = frames[0]
+    assert img.shape == depth.shape == (480, 640) and float(depth.max()) < 3.5 * rg.depth_map_factor
+    assert set(pm.WORKLOADS) == {"mono", "stereo", "rgbd"}
+
+
+def test_stereo_kernel_arguments_follow_the_problem():
+    prob = SimpleNamespace(obs_ur=None)
+    cfg = SimpleNamespace(bf=386.1448, chi2_stereo=7.815)
+    assert chip_smoke._stereo_kw(prob, cfg) == {}
+    prob = SimpleNamespace(obs_ur=torch.zeros(2, 3))
+    kw = chip_smoke._stereo_kw(prob, cfg)
+    assert kw["bf"] == 386.1448 and kw["delta2_stereo"] == 7.815 and kw["obs_ur"] is prob.obs_ur

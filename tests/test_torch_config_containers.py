@@ -166,3 +166,34 @@ class TestCheckpointCrossLoad:
                 a = np.asarray(getattr(getattr(m, part), name))
                 assert back[part][name].dtype == a.dtype, name
                 np.testing.assert_array_equal(back[part][name], a)
+
+    def test_interop_keeps_stereo_fields(self):
+        """A stereo keyframe store's u_right/depth and a problem's obs_ur
+        cross over exactly; a mono problem's absent obs_ur stays None."""
+        cfg, m = _random_map(8)
+        rng = np.random.default_rng(8)
+        shape = m.kfs.u_right.shape
+        u_right = np.where(rng.random(shape) < 0.5, rng.uniform(0, 600, shape), -1.0).astype(np.float32)
+        depth = np.where(u_right >= 0, rng.uniform(0.5, 20, shape), -1.0).astype(np.float32)
+        m = m._replace(kfs=m.kfs._replace(u_right=jnp.asarray(u_right), depth=jnp.asarray(depth)))
+        tm = interop.map_from_numpy(jax.device_get(m))
+        np.testing.assert_array_equal(tm.kfs.u_right.numpy(), u_right)
+        np.testing.assert_array_equal(tm.kfs.depth.numpy(), depth)
+        back = interop.map_to_numpy(tm)
+        np.testing.assert_array_equal(back["kfs"]["u_right"], u_right)
+        np.testing.assert_array_equal(back["kfs"]["depth"], depth)
+
+        from dialog_tpu.optim.synth_problem import FIXTURE_CFG, make_problem
+
+        for stereo_frac in (0.5, 0.0):
+            prob = jax.device_get(make_problem(seed=0, cfg=FIXTURE_CFG.replace(bf=FIXTURE_CFG.fx * 0.12),
+                                               stereo_frac=stereo_frac)[0])
+            got = interop.problem_from_numpy(prob)
+            assert got._fields == prob._fields
+            for name in prob._fields:
+                a = getattr(prob, name)
+                if a is None:
+                    assert getattr(got, name) is None, name
+                else:
+                    np.testing.assert_array_equal(np.asarray(a), getattr(got, name).numpy(), err_msg=name)
+            assert (got.obs_ur is not None) == (stereo_frac > 0)

@@ -10,7 +10,8 @@ Tolerances: A and B are integer and min/max computations, bit-exact. C sums
 in another order than the plain version: its direct outputs within 1e-4 of
 each output's largest magnitude on a well-conditioned problem, bitwise equal
 from run to run, and a 5-iteration ``solve_ba`` within the reference's
-``kernels/selfcheck`` bounds (R and t 2e-3, xyz 5e-3).
+``kernels/selfcheck`` bounds (R and t 2e-3, xyz 5e-3); the same for its
+stereo variant, with a right-x on half the observations.
 """
 
 import numpy as np
@@ -30,6 +31,7 @@ torch.set_num_threads(2)
 
 CFG = EngineConfig(width=640, height=480, n_features=1000, max_features=1024, max_local_kfs=16,
                    max_fixed_kfs=16, max_local_lms=2048, max_obs_per_lm=8)
+STEREO_CFG = CFG.replace(bf=CFG.fx * 0.12)
 
 
 @pytest.fixture
@@ -39,8 +41,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _ba_problem(dev, seed=0, n_cams=12, n_pts=1500):
-    """Cameras on an arc observing a box of points, poses and points perturbed."""
+def _ba_problem(dev, seed=0, n_cams=12, n_pts=1500, stereo_frac=0.0):
+    """Cameras on an arc observing a box of points, poses and points perturbed;
+    with ``stereo_frac`` that share of the observations carries a right-x."""
     rng = np.random.default_rng(seed)
     C, P, O = CFG.max_local_kfs + CFG.max_fixed_kfs, CFG.max_local_lms, CFG.max_obs_per_lm
     pts = np.stack([rng.uniform(-3, 3, n_pts), rng.uniform(-2, 2, n_pts), rng.uniform(6, 10, n_pts)], -1)
@@ -56,12 +59,16 @@ def _ba_problem(dev, seed=0, n_cams=12, n_pts=1500):
         t[c] = -R[c] @ eye
     obs_cam = np.full((P, O), C, np.int32)
     obs_uv = np.zeros((P, O, 2))
+    obs_z = np.ones((P, O))
     for p in range(n_pts):
         for o, c in enumerate(rng.choice(n_cams, O, replace=False)):
             Xc = R[c] @ pts[p] + t[c]
             obs_cam[p, o] = c
+            obs_z[p, o] = Xc[2]
             obs_uv[p, o] = [CFG.fx * Xc[0] / Xc[2] + CFG.cx, CFG.fy * Xc[1] / Xc[2] + CFG.cy]
     obs_uv += rng.normal(0, 0.5, obs_uv.shape)
+    obs_ur = obs_uv[..., 0] - STEREO_CFG.bf / obs_z + rng.normal(0, 0.5, obs_z.shape)
+    obs_ur = np.where(rng.random(obs_z.shape) < stereo_frac, obs_ur, -1.0)
     ok = obs_cam < C
     cam_opt = np.zeros(C, bool)
     cam_opt[2:n_cams] = True
@@ -74,6 +81,7 @@ def _ba_problem(dev, seed=0, n_cams=12, n_pts=1500):
         R=Rt.contiguous(), t=tt.contiguous(), lm_ids=torch.arange(P, dtype=torch.int32, device=dev),
         xyz=f32(xyz), obs_cam=torch.tensor(obs_cam, device=dev), obs_uv=f32(obs_uv), obs_w=f32(ok * 1.0),
         obs_ok=torch.tensor(ok, device=dev), obs_feat=torch.zeros((P, O), dtype=torch.int32, device=dev),
+        obs_ur=f32(np.where(ok, obs_ur, -1.0)) if stereo_frac > 0 else None,
     )
 
 
@@ -150,14 +158,46 @@ def test_schur_kernel_solve_matches_plain_solve(cuda):
     assert float((xk.cpu() - xp).abs().max()) < 5e-3
 
 
+def test_schur_kernel_stereo_matches_plain_and_repeats(cuda):
+    prob = _ba_problem(cuda, seed=2, stereo_frac=0.5)
+    lam = torch.tensor(1e-3, device=cuda)
+    st = dict(obs_ur=prob.obs_ur, bf=STEREO_CFG.bf, delta2_stereo=STEREO_CFG.chi2_stereo)
+    before = dict(common.launches)
+    got = schur.schur_reduce(*_reduce_args(prob, lam), **st)
+    again = schur.schur_reduce(*_reduce_args(prob, lam), **st)
+    want = schur.schur_reduce_plain(*_reduce_args(prob, lam), **st)
+    mono = schur.schur_reduce_plain(*_reduce_args(prob, lam))
+    torch.cuda.synchronize()
+    assert common.launches["schur_reduce_stereo"] == before["schur_reduce_stereo"] + 2
+    assert common.launches["schur_reduce"] == before["schur_reduce"]
+    n_pts = 1500
+    for k, (name, g, w, m) in enumerate(zip(["Hll_inv", "g_l", "Y", "Hcc", "g_c", "g_red", "S_pair"],
+                                            got, want, mono)):
+        assert g.shape == w.shape, name
+        if k < 3:   # per-landmark outputs: the observed landmarks (padding holds 1/1e-9)
+            g, w, m = g[:n_pts], w[:n_pts], m[:n_pts]
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= 1e-4 * scale, name
+        assert float((m - w).abs().max()) > 1e-2 * scale, name   # the uR rows count
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+
+
+def test_schur_kernel_stereo_solve_matches_plain_solve(cuda):
+    prob = _ba_problem(cuda, seed=3, stereo_frac=0.5)
+    Rk, tk, xk, _ = solve_ba(prob, STEREO_CFG, iters=5, chi2_th=CFG.chi2_mono)
+    prob_cpu = BAProblem(*[x.cpu() if isinstance(x, torch.Tensor) else x for x in prob])
+    Rp, tp, xp, _ = solve_ba(prob_cpu, STEREO_CFG, iters=5, chi2_th=CFG.chi2_mono)
+    assert float((Rk.cpu() - Rp).abs().max()) < 2e-3
+    assert float((tk.cpu() - tp).abs().max()) < 2e-3
+    assert float((xk.cpu() - xp).abs().max()) < 5e-3
+
+
 def test_schur_kernel_raises_where_it_has_no_path(cuda):
     prob = _ba_problem(cuda, n_pts=50)
     lam = torch.tensor(1e-3, device=cuda)
     with pytest.raises(ValueError):
         schur.schur_reduce(*_reduce_args(prob, lam), lm_opt=torch.ones(prob.xyz.shape[0], dtype=torch.bool,
                                                                         device=cuda))
-    with pytest.raises(NotImplementedError):
-        schur.schur_reduce(*_reduce_args(prob, lam), obs_ur=torch.zeros_like(prob.obs_w))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
