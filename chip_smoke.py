@@ -21,7 +21,12 @@ Needs one CUDA card and nvcc; exits non-zero without them. It
    stereo (uR) variant as in 5 on that engine's window (C=64, P=8192, O=12);
 7. drives the RGB-D path, ``Engine.track_rgbd`` over 24 rendered 640x480
    frames with their depth maps at the TUM1 RGB-D settings;
-8. times each kernel and its plain version at its path's shapes.
+8. times each kernel at its path's shapes: the device's own time per call
+   under ``torch.profiler`` (the kernel's launches by name, kernel C's two
+   stages apart), the pace of back-to-back wrapper calls between two CUDA
+   events (host work included), the plain version likewise, and the least
+   time the card could take for the same inputs (bytes over 3.35 TB/s or
+   operations over 67 TFLOP/s f32, whichever is larger).
 
 Each path runs on a fresh engine, with every kernel's launch count reset just
 before it and read just after. It prints one JSON line with the kernels, the
@@ -58,6 +63,19 @@ ATE_GATE = 0.35         # metres, the reference's image-in-the-loop gate (simila
 STEREO_ATE_GATE = 0.25
 RGBD_ATE_GATE = 0.05    # metres, metric: the reference's stereo/RGB-D gate (tests/test_stereo_rgbd.py)
 
+# published peaks of one H100 SXM at its full 700 W: HBM3, and f32 outside the tensor cores
+# (integer and min/max operations are counted at the same rate)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# the hand-written kernels one wrapper call launches, by (a substring of) their names
+DEVICE_KERNELS = {
+    "fast_nms_rank": ("fast_nms_rank_kernel",),
+    "hamming_best2": ("hamming_best2_kernel",),
+    "schur_reduce": ("schur_obs", "schur_cams"),
+    "schur_reduce_stereo": ("schur_obs", "schur_cams"),
+}
+HOST_PACED = 1.5        # a wrapper loop this many times slower than the device's own time is paced by the host
+
 KERNELS = {
     "fast_nms_rank": ("dialog_tpu_torch/csrc/fast.cu", "dialog_tpu/kernels/fast.py:118"),
     "hamming_best2": ("dialog_tpu_torch/csrc/hamming.cu", "dialog_tpu/kernels/hamming.py:131"),
@@ -76,7 +94,9 @@ def say(msg: str) -> None:
 
 
 def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    """Mean device time of one call over ``reps`` calls (CUDA events)."""
+    """The pace of ``reps`` back-to-back calls, ms per call, between two CUDA
+    events: the device's time where the device is the slower side, the
+    host's (wrapper, allocations, ctypes) where it is."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -88,6 +108,58 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_ms(fn, own: tuple, reps: int = 20, warm: int = 3) -> dict:
+    """The device's own time of one call of ``fn``, from ``torch.profiler``
+    over ``reps`` calls: ``stages_ms`` maps each hand-written kernel of
+    ``own`` (a substring of its name) to its mean time per launch times its
+    launches per call, ``device_ms`` is their sum, ``other_device_ms`` what
+    the call's other device work takes (fills, copies, PyTorch's own
+    kernels), and ``shortest_launch_ms`` the shortest single kernel seen. The
+    profiler may drop a launch's record, so a stage counts the records it
+    has. With no name in ``own`` the call is PyTorch's alone and all of its
+    device time is ``other_device_ms``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    seen = {k: [] for k in own}
+    other, shortest = 0.0, float("inf")
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = (e.time_range.end - e.time_range.start) * 1e-3
+        mine = [k for k in own if k in e.name]
+        if mine:
+            seen[mine[0]].append(ms)
+        else:
+            other += ms / reps
+        if not e.name.startswith(("Memcpy", "Memset")):
+            shortest = min(shortest, ms)
+    if own and not any(seen.values()):
+        fail(f"the profiler saw no launch of {own} in {reps} calls: no device time to report")
+    stages = {k: sum(v) / len(v) * max(1, round(len(v) / reps)) for k, v in seen.items() if v}
+    return {"device_ms": sum(stages.values()), "stages_ms": stages, "other_device_ms": other,
+            "shortest_launch_ms": shortest}
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: each input byte read once and each
+    output byte written once at HBM_BYTES_PER_S, or the operations at
+    F32_OPS_PER_S, whichever is larger."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes": int(n_bytes), "bound_ops": int(n_ops)}
+
+
+def nbytes(*tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors)
 
 
 # ---------------------------------------------------------------------------
@@ -419,32 +491,107 @@ def check_schur(eng, cfg, dev):
 # ---------------------------------------------------------------------------
 
 
+def fast_bound(img, out) -> dict:
+    """Kernel A: the image read and the rank written once; per pixel 16
+    differences to the centre, the minimum and the maximum of each of the 16
+    arcs of 9 (8 + 8 operations each), the best arc of either sign (32), the
+    score (1) and the 3x3 maximum with its compare (9)."""
+    return bound(nbytes(img, out), img.numel() * (16 + 16 * 16 + 32 + 1 + 9))
+
+
+def hamming_bound(x, out, band: int) -> dict:
+    """Kernel B: every argument read and the three results written once; 9
+    gate operations (two differences, two products, a sum, a compare, the
+    octave difference, its magnitude and compare) for each pair of a valid
+    row and a valid column, and 25 (8 xor, 8 popcounts, 7 sums, 2 compares)
+    for each pair whose gates these inputs open."""
+    from dialog_tpu_torch.kernels.hamming import gate_d2
+
+    valid = x["va"][:, None] & x["vb"][None, :]
+    open_ = valid & (gate_d2(x["uva"], x["uvb"]) <= x["r2"][:, None]) \
+        & ((x["oa"][:, None] - x["ob"][None, :]).abs() <= band)
+    # the column radii are the wrapper's default, one f32 per column
+    n_in = nbytes(x["a"], x["b"], x["va"], x["vb"], x["uva"], x["uvb"], x["r2"], x["oa"], x["ob"]) + x["b"].shape[0] * 4
+    return bound(n_in + nbytes(*out), 9 * int(valid.sum()) + 25 * int(open_.sum()))
+
+
+def schur_bound(args, kw, out) -> dict:
+    """Kernel C: every argument of the function read and the seven outputs
+    written once (the camera index is this design's own structure, not an
+    input of the function, and is not counted); operations counted for this
+    window's live
+    observations (a camera in range, a weight, in front of its camera), not
+    for every slot. Per live observation with D = 2 or 3 residual rows:
+    the transform, projection, Huber weight and Jacobians (60 + 25 D), its
+    share of Hll and g_l (9 + 18 D), and, where its camera is optimized, Y
+    (18 + 36 D), Z = Y L^-T and Y Hll^-1 g_l (84), Hcc and g_c (27 + 54 D);
+    per landmark the 3x3 Cholesky, its inverse and Hll^-1 g_l (75); per pair
+    of observations of one landmark by optimized cameras a 6x6x3 product and
+    its sum (216)."""
+    from dialog_tpu_torch.kernels.schur import observation_terms
+
+    R, t, cam_opt, xyz, obs_cam, obs_uv, obs_w = args[:7]
+    C = R.shape[0]
+    valid = (obs_w > 0.0) & (obs_cam >= 0) & (obs_cam < C)
+    ok = observation_terms(R, t, xyz, obs_cam, obs_uv, valid, *args[8:12])[3]
+    rows = torch.where(kw["obs_ur"] >= 0.0, 3, 2) if kw else torch.full_like(obs_cam, 2)
+    opt = ok & cam_opt[torch.clamp(obs_cam, 0, C - 1).long()]
+    ops = int((ok * (69 + 43 * rows)).sum()) + int((opt * (129 + 90 * rows)).sum()) + 75 * xyz.shape[0] \
+        + 216 * int((opt.sum(1) ** 2).sum())
+    ins = list(args[:8]) + ([kw["obs_ur"]] if kw else [])
+    return dict(bound(nbytes(*ins, *out), ops), live_observations=int(ok.sum()), optimized_observations=int(opt.sum()))
+
+
 def kernel_times(images, cfg, prob, stereo_cfg, stereo_prob, dev) -> dict:
+    """For each kernel at its path's shapes: ``ms`` the device's own time per
+    call (``device_ms``), ``wrapper_loop_ms`` and ``plain_ms`` the pace of
+    back-to-back calls of the wrapper and of the plain version, the bound,
+    and whether the host sets the wrapper loop's pace. Kernel C needs its
+    camera index once per solve: ``cam_index_device_ms`` is the device time
+    of building it (PyTorch's sort and search kernels), ``cam_index_ms`` the
+    pace of back-to-back builds, and ``solve_device_ms`` the device cost of
+    one ``solve_ba`` of the path, the index plus ``solve_iters`` calls."""
     from dialog_tpu_torch.kernels.fast import fast_nms_rank, fast_nms_rank_plain
     from dialog_tpu_torch.kernels.hamming import _defaults, hamming_best2, hamming_best2_plain
-    from dialog_tpu_torch.kernels.schur import schur_reduce, schur_reduce_plain
+    from dialog_tpu_torch.kernels.schur import camera_index, schur_reduce, schur_reduce_plain
 
     img = torch.from_numpy(images[0]).to(dev)
     a_args = (img, float(cfg.min_th_fast), float(cfg.ini_th_fast), 19)
     x = _hamming_inputs(2048, 1024, 3, dev)
     h_args = (x["a"], x["b"], x["va"], x["vb"], x["uva"], x["uvb"], x["r2"])
+    h_kw = dict(oct_a=x["oa"], oct_b=x["ob"], octave_band=1)
     filled = _defaults(x["a"], x["b"], x["uva"], x["uvb"], x["r2"], None, x["oa"], x["ob"])
     lam = torch.tensor(1e-4, dtype=torch.float32, device=dev)
 
     def c_args(p, c):
         return (p.R, p.t, p.cam_opt, p.xyz, p.obs_cam, p.obs_uv, p.obs_w, lam, c.fx, c.fy, c.cx, c.cy, c.chi2_mono)
 
-    m_args, s_args, s_kw = c_args(prob, cfg), c_args(stereo_prob, stereo_cfg), _stereo_kw(stereo_prob, stereo_cfg)
-    return {
-        "fast_nms_rank": (time_ms(lambda: fast_nms_rank(*a_args)), time_ms(lambda: fast_nms_rank_plain(*a_args))),
-        "hamming_best2": (
-            time_ms(lambda: hamming_best2(*h_args, oct_a=x["oa"], oct_b=x["ob"], octave_band=1)),
-            time_ms(lambda: hamming_best2_plain(x["a"], x["b"], x["va"], x["vb"], *filled, 1)),
-        ),
-        "schur_reduce": (time_ms(lambda: schur_reduce(*m_args)), time_ms(lambda: schur_reduce_plain(*m_args))),
-        "schur_reduce_stereo": (time_ms(lambda: schur_reduce(*s_args, **s_kw), reps=10),
-                                time_ms(lambda: schur_reduce_plain(*s_args, **s_kw), reps=10)),
+    def entry(name, fn, plain, limit, reps=20, **extra):
+        out = device_ms(fn, DEVICE_KERNELS[name], reps=reps)
+        out.update(ms=out["device_ms"], wrapper_loop_ms=time_ms(fn, reps=reps), plain_ms=time_ms(plain, reps=reps),
+                   library_ms=None, **limit, **extra)
+        out["host_paced"] = out["wrapper_loop_ms"] > HOST_PACED * out["device_ms"]
+        return out
+
+    times = {
+        "fast_nms_rank": entry("fast_nms_rank", lambda: fast_nms_rank(*a_args), lambda: fast_nms_rank_plain(*a_args),
+                               fast_bound(img, fast_nms_rank(*a_args)), reps=50),
+        "hamming_best2": entry("hamming_best2", lambda: hamming_best2(*h_args, **h_kw),
+                               lambda: hamming_best2_plain(x["a"], x["b"], x["va"], x["vb"], *filled, 1),
+                               hamming_bound(x, hamming_best2(*h_args, **h_kw), 1), reps=50),
     }
+    # kernel C as solve_ba calls it: the camera index built once, outside the call
+    for name, p, c in [("schur_reduce", prob, cfg), ("schur_reduce_stereo", stereo_prob, stereo_cfg)]:
+        args, kw = c_args(p, c), _stereo_kw(p, c)
+        build_index = lambda: camera_index(p.obs_cam, p.obs_w, p.R.shape[0])  # noqa: E731
+        idx = build_index()
+        times[name] = t = entry(name, lambda: schur_reduce(*args, **kw, cam_index=idx),
+                                lambda: schur_reduce_plain(*args, **kw),
+                                schur_bound(args, kw, schur_reduce(*args, **kw, cam_index=idx)),
+                                cam_index_device_ms=device_ms(build_index, ())["other_device_ms"],
+                                cam_index_ms=time_ms(build_index), solve_iters=c.local_ba_iters)
+        t["solve_device_ms"] = t["cam_index_device_ms"] + t["solve_iters"] * t["device_ms"]
+    return times
 
 
 def main() -> int:
@@ -499,18 +646,27 @@ def main() -> int:
     errs = {"fast_nms_rank": err_a, "hamming_best2": err_b, "schur_reduce": err_c, "schur_reduce_stereo": err_cs}
     rels = {"schur_reduce": rel_c, "schur_reduce_stereo": rel_cs}
     by_path = {"mono": launches, "stereo": slaunches, "rgbd": rlaunches}
+    # every launch is above these bounds: the shortest single kernel of the timing runs is the practical floor
+    floor_ms = min(t["shortest_launch_ms"] for t in times.values())
+    say(f"shortest single kernel launch seen while timing (the practical floor of any bound below it): "
+        f"{floor_ms} ms on {smi}")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        ms, plain_ms = times[name]
         path = "stereo" if name == "schur_reduce_stereo" else "mono"
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": by_path[path][name], "launches_path": path,
             "launches_by_path": {p: n[name] for p, n in by_path.items()},
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": errs[name], **times[name], "launch_floor_ms": floor_ms,
         })
         if name in rels:
             kernels[-1]["direct_max_rel_err"] = rels[name]
+        t = times[name]
+        say(f"kernel {name}: device {t['device_ms']} ms {json.dumps(t['stages_ms'])}, wrapper loop "
+            f"{t['wrapper_loop_ms']} ms{' (the host sets the pace)' if t['host_paced'] else ''}, plain "
+            f"{t['plain_ms']} ms, bound {t['bound_ms']} ms by {t['bound_by']}"
+            + (f"; camera index {t['cam_index_device_ms']} ms on the device, one solve of {t['solve_iters']} "
+               f"iterations {t['solve_device_ms']} ms" if "solve_device_ms" in t else ""))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

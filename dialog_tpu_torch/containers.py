@@ -88,7 +88,7 @@ class MapState(NamedTuple):
     lm_dropped: torch.Tensor # i32 scalar: landmark candidates dropped (freelist empty)
 
 
-def empty_map(cfg: EngineConfig, device="cpu") -> MapState:
+def empty_map(cfg: EngineConfig, device="cuda") -> MapState:
     K, F, L = cfg.max_keyframes, cfg.max_features, cfg.max_landmarks
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
@@ -284,7 +284,7 @@ def _named_leaves(m: MapState):
     return list(zip(_leaves(m), names))
 
 
-def load_map(cfg: EngineConfig, path: str, device="cpu") -> MapState:
+def load_map(cfg: EngineConfig, path: str, device="cuda") -> MapState:
     from .interop import numpy_to_tensor
 
     template = _named_leaves(empty_map(cfg, device="meta"))

@@ -83,7 +83,7 @@ def make_scene(seed: int = 0, n_points: int = 600, n_frames: int = 30, trajector
 
 
 def observe(scene: SynthScene, frame: int, noise_px: float = 0.5, desc_flips: int = 8,
-            seed: int | None = None, drop_rate: float = 0.0, device="cpu"):
+            seed: int | None = None, drop_rate: float = 0.0, device="cuda"):
     """Project the scene into frame ``frame`` -> (FrameArrays on ``device``,
     lm_ids i32[F] numpy).
 

@@ -22,7 +22,7 @@ from .containers import FrameArrays, KeyframeStore, LandmarkStore, MapState
 from .optim.local_ba import BAProblem
 
 
-def numpy_to_tensor(a, dtype=None, device="cpu") -> torch.Tensor:
+def numpy_to_tensor(a, dtype=None, device="cuda") -> torch.Tensor:
     """numpy array -> tensor; uint32 words become their int32 bit-cast."""
     a = np.array(a, order="C")       # a fresh C-ordered copy; keeps 0-d shapes
     if a.dtype == np.uint32:
@@ -47,12 +47,12 @@ def _tuple_from_numpy(cls, src, device):
     return cls(**{f: numpy_to_tensor(_get(src, f), device=device) for f in cls._fields})
 
 
-def frame_from_numpy(frame, device="cpu") -> FrameArrays:
+def frame_from_numpy(frame, device="cuda") -> FrameArrays:
     """Reference FrameArrays (numpy leaves) -> port FrameArrays on ``device``."""
     return _tuple_from_numpy(FrameArrays, frame, device)
 
 
-def map_from_numpy(m, device="cpu") -> MapState:
+def map_from_numpy(m, device="cuda") -> MapState:
     """Reference MapState (numpy leaves) -> port MapState on ``device``."""
     return MapState(
         kfs=_tuple_from_numpy(KeyframeStore, _get(m, "kfs"), device),
@@ -64,7 +64,7 @@ def map_from_numpy(m, device="cpu") -> MapState:
     )
 
 
-def problem_from_numpy(prob, device="cpu") -> BAProblem:
+def problem_from_numpy(prob, device="cuda") -> BAProblem:
     """Reference BAProblem (numpy leaves) -> port BAProblem on ``device``;
     an absent ``obs_ur`` (mono problem) or ``lm_opt`` stays None."""
     return BAProblem(**{f: None if _get(prob, f) is None else numpy_to_tensor(_get(prob, f), device=device)

@@ -18,17 +18,48 @@ uR_hat - uR with its own Jacobians, and their Huber bound is
 ``schur_reduce_plain`` is the same reduction in plain PyTorch (the
 reference's einsum path, ``_reduce_jnp``); it also takes the frozen-landmark
 mask ``lm_opt``, which the CUDA kernel does not.
+
+The CUDA kernel walks each camera's observations through an index of the
+live slots by camera (``camera_index``). ``obs_cam`` and ``obs_w`` do not
+change over the LM iterations of one solve, so ``solve_ba`` builds the index
+once and hands it to every ``schur_reduce`` call; a call without one builds
+its own. The kernel's scratch is linear in the observation slots
+(``SCRATCH_WORDS`` 32-bit words each).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import common
 
-MAX_OBS = 16   # observations per landmark the CUDA kernel holds in shared memory
+MAX_OBS = 32     # observations per landmark on the card: one lane each, a warp per landmark at most
+MAX_CAMS = 4096  # cameras on the card: one block per camera pair, S_pair [C,6,C,6] is 2.4 GB here
+SCRATCH_WORDS = 52   # per observation slot: Z = Y L^-T (18), Hcc/g_c/g_red summands (33), camera (1)
+
+
+class CamIndex(NamedTuple):
+    """The live observation slots of a problem, grouped by camera."""
+
+    cam_ptr: torch.Tensor   # i32[C + 1]: camera c's slots are cam_obs[cam_ptr[c]:cam_ptr[c + 1]]
+    cam_obs: torch.Tensor   # i32[P * O]: flat slots p * O + o; beyond cam_ptr[C] the dead slots
+
+
+def camera_index(obs_cam, obs_w, n_cams: int) -> CamIndex:
+    """Group the live slots (camera in [0, n_cams), weight > 0) by camera.
+
+    A stable sort, so within a camera the flat slots ``p * O + o`` increase:
+    that is the fixed order kernel C sums in. Runs on the problem's device
+    and reads nothing back to the host; ``cam_ptr[n_cams]`` is the number of
+    live slots."""
+    live = (obs_cam >= 0) & (obs_cam < n_cams) & (obs_w > 0.0)
+    key = torch.where(live, obs_cam, n_cams).reshape(-1)
+    key, order = torch.sort(key, stable=True)
+    bounds = torch.arange(n_cams + 1, dtype=key.dtype, device=key.device)
+    return CamIndex(cam_ptr=torch.searchsorted(key, bounds).to(torch.int32), cam_obs=order.to(torch.int32))
 
 
 def observation_terms(R, t, xyz, obs_cam, obs_uv, valid, fx, fy, cx, cy, cam_opt=None,
@@ -104,11 +135,13 @@ def schur_reduce_plain(R, t, cam_opt, xyz, obs_cam, obs_uv, obs_w, lam, fx, fy, 
 
 def schur_reduce(R, t, cam_opt, xyz, obs_cam, obs_uv, obs_w, lam, fx, fy, cx, cy,
                  delta2: float = 5.991, lm_opt=None, obs_ur=None, bf: float = 0.0,
-                 delta2_stereo: float = 7.815):
+                 delta2_stereo: float = 7.815, cam_index: CamIndex | None = None):
     """One fused BA reduction pass (see module doc). ``lam`` is a 0-d f32
     tensor on the problem's device, so the LM loop never syncs the host.
     The stereo variant is on when ``obs_ur is not None and bf > 0``; on the
-    card it counts its launches as ``schur_reduce_stereo``."""
+    card it counts its launches as ``schur_reduce_stereo``. ``cam_index`` is
+    ``camera_index(obs_cam, obs_w, C)`` of the same problem (built here when
+    absent; the plain version has no use for it)."""
     if common.route(xyz) == "cpu":
         return schur_reduce_plain(R, t, cam_opt, xyz, obs_cam, obs_uv, obs_w, lam,
                                   fx, fy, cx, cy, delta2, lm_opt, obs_ur, bf, delta2_stereo)
@@ -121,33 +154,43 @@ def schur_reduce(R, t, cam_opt, xyz, obs_cam, obs_uv, obs_w, lam, fx, fy, cx, cy
     C = R.shape[0]
     P, O = obs_cam.shape
     dev = xyz.device
-    if O > MAX_OBS:
-        raise ValueError(f"schur_reduce: at most {MAX_OBS} observations per landmark, got {O}")
+    if not 1 <= O <= MAX_OBS:
+        raise ValueError(f"schur_reduce: 1 to {MAX_OBS} observations per landmark, got {O}")
+    if not 1 <= C <= MAX_CAMS:
+        raise ValueError(f"schur_reduce: 1 to {MAX_CAMS} cameras, got {C}")
+    if P * O * SCRATCH_WORDS >= 2**31:
+        raise ValueError(f"schur_reduce: {P} x {O} observation slots are more than the kernel indexes")
+    if cam_index is None:
+        cam_index = camera_index(obs_cam, obs_w, C)
     lam = torch.as_tensor(lam, dtype=torch.float32, device=dev).reshape(())
     for name, x, dt, shape in [
         ("R", R, torch.float32, (C, 3, 3)), ("t", t, torch.float32, (C, 3)),
         ("cam_opt", cam_opt, torch.bool, (C,)), ("xyz", xyz, torch.float32, (P, 3)),
         ("obs_cam", obs_cam, torch.int32, (P, O)), ("obs_uv", obs_uv, torch.float32, (P, O, 2)),
         ("obs_w", obs_w, torch.float32, (P, O)), ("lam", lam, torch.float32, ()),
+        ("cam_index.cam_ptr", cam_index.cam_ptr, torch.int32, (C + 1,)),
+        ("cam_index.cam_obs", cam_index.cam_obs, torch.int32, (P * O,)),
     ] + ([("obs_ur", obs_ur, torch.float32, (P, O))] if stereo else []):
         common.require(x, name, dt, shape, dev)
     hll_inv = torch.empty((P, 3, 3), dtype=torch.float32, device=dev)
     g_l = torch.empty((P, 3), dtype=torch.float32, device=dev)
     Y = torch.empty((P, O, 6, 3), dtype=torch.float32, device=dev)
-    n_out = 36 * C * C + 48 * C
-    n_blocks = lib.schur_num_blocks(P)
-    part = torch.empty((max(n_blocks, 1) * n_out,), dtype=torch.float32, device=dev)
-    cam_out = torch.empty((n_out,), dtype=torch.float32, device=dev)
+    scratch = torch.empty((SCRATCH_WORDS, P * O), dtype=torch.float32, device=dev)
+    cam_out = torch.empty((36 * C * C + 48 * C,), dtype=torch.float32, device=dev)
     fn = lib.schur_reduce_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_float] * 7 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 6)
+    if fn.argtypes is None:   # first call on this library
+        if lib.schur_scratch_words() != SCRATCH_WORDS:
+            raise RuntimeError("schur.cu and kernels/schur.py disagree on the scratch per observation slot")
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_float] * 7 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p] * 6)
     err = fn(common.ptr(R), common.ptr(t), common.ptr(cam_opt), common.ptr(xyz),
              common.ptr(obs_cam), common.ptr(obs_uv), common.ptr(obs_w),
              common.ptr(obs_ur) if stereo else None, common.ptr(lam),
+             common.ptr(cam_index.cam_ptr), common.ptr(cam_index.cam_obs),
              float(fx), float(fy), float(cx), float(cy), float(delta2), float(bf), float(delta2_stereo),
              int(stereo), C, P, O,
-             common.ptr(hll_inv), common.ptr(g_l), common.ptr(Y), common.ptr(part),
+             common.ptr(hll_inv), common.ptr(g_l), common.ptr(Y), common.ptr(scratch),
              common.ptr(cam_out), common.stream_ptr(dev))
     name = "schur_reduce_stereo" if stereo else "schur_reduce"
     common.launches[name] += 1

@@ -183,7 +183,8 @@ def solve_ba(prob: BAProblem, cfg: EngineConfig, iters: int = 10, chi2_th: float
     Returns (R [C,3,3], t [C,3], xyz [P,3], final robust cost). The
     reduction is ``kernels.schur.schur_reduce``: kernel C for CUDA tensors,
     its plain version (which also covers ``lm_opt``) for CPU tensors; it
-    carries the stereo (uR) row when the problem has one.
+    carries the stereo (uR) row when the problem has one. The kernel's index
+    of observations by camera is built once here, not at every iteration.
     """
     fx, fy, cx, cy = cfg.fx, cfg.fy, cfg.cx, cfg.cy
     use_stereo = _use_stereo(prob, cfg)
@@ -195,6 +196,7 @@ def solve_ba(prob: BAProblem, cfg: EngineConfig, iters: int = 10, chi2_th: float
     eye6 = torch.eye(6, dtype=dt, device=dev)
     ar = torch.arange(C, device=dev)
     safe_cam = torch.clamp(prob.obs_cam, 0, C - 1).long()
+    cam_index = schur_kernel.camera_index(prob.obs_cam, prob.obs_w, C) if prob.xyz.is_cuda else None
 
     def cost_of(R, t, xyz):
         r, _, _, ok = _residuals(prob, R, t, xyz, fx, fy, cx, cy, bf)
@@ -209,6 +211,7 @@ def solve_ba(prob: BAProblem, cfg: EngineConfig, iters: int = 10, chi2_th: float
             R, t, prob.cam_opt, xyz, prob.obs_cam, prob.obs_uv, prob.obs_w, lam,
             fx, fy, cx, cy, delta2=chi2_th, lm_opt=prob.lm_opt,
             obs_ur=prob.obs_ur if use_stereo else None, bf=bf, delta2_stereo=cfg.chi2_stereo,
+            cam_index=cam_index,
         )
         dcc = torch.diagonal(Hcc, dim1=-2, dim2=-1)
         Hcc_d = Hcc + (lam * torch.clamp(dcc, min=1e-9) + 1e-9)[..., None] * eye6

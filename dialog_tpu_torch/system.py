@@ -58,17 +58,18 @@ def _host(x) -> np.ndarray:
 
 
 class Engine:
-    """SLAM engine on one device.
+    """SLAM engine on one device: the CUDA card unless ``device`` says
+    otherwise (``device="cpu"`` takes the kernels' plain versions).
 
     Usage::
 
-        eng = Engine(config, device="cuda")
+        eng = Engine(config)
         for img, ts in frames:
             rec = eng.track_image(img, ts)   # track_stereo / track_rgbd by cfg.sensor
         eng.save_trajectory_tum(path)
     """
 
-    def __init__(self, cfg: EngineConfig, device="cpu"):
+    def __init__(self, cfg: EngineConfig, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         self.m: MapState = empty_map(cfg, device=self.device)

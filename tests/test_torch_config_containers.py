@@ -86,7 +86,7 @@ class TestContainers:
     def test_empty_map_layout(self):
         cfg = jconfig.EngineConfig(**SMALL)
         ref = jax.device_get(jc.empty_map(cfg))
-        got = interop.map_to_numpy(tc.empty_map(_port_cfg(cfg)))
+        got = interop.map_to_numpy(tc.empty_map(_port_cfg(cfg), device="cpu"))
         for part in ("kfs", "lms"):
             for name in getattr(ref, part)._fields:
                 a = np.asarray(getattr(getattr(ref, part), name))
@@ -97,7 +97,7 @@ class TestContainers:
     @pytest.mark.parametrize("seed", [0, 1])
     def test_covis_and_counts(self, seed):
         cfg, m = _random_map(seed)
-        tm = interop.map_from_numpy(jax.device_get(m))
+        tm = interop.map_from_numpy(jax.device_get(m), device="cpu")
         for k in (0, 3):
             np.testing.assert_array_equal(
                 np.asarray(jc.covis_row_for_kf(m, jnp.int32(k))), tc.covis_row_for_kf(tm, k).numpy()
@@ -112,14 +112,14 @@ class TestContainers:
 
     def test_slot_ops(self):
         cfg, m = _random_map(2)
-        tm = interop.map_from_numpy(jax.device_get(m))
+        tm = interop.map_from_numpy(jax.device_get(m), device="cpu")
         assert int(jc.first_free_kf_slot(m)) == int(tc.first_free_kf_slot(tm))
         np.testing.assert_array_equal(np.asarray(jc.free_lm_slots(m, 300)), tc.free_lm_slots(tm, 300).numpy())
         assert int(jc.lm_capacity_left(m)) == int(tc.lm_capacity_left(tm))
 
     def test_map_meta(self):
         cfg, m = _random_map(3)
-        tm = interop.map_from_numpy(jax.device_get(m))
+        tm = interop.map_from_numpy(jax.device_get(m), device="cpu")
         a = np.asarray(jc.pack_map_meta(m))
         b = tc.pack_map_meta(tm).numpy()
         np.testing.assert_array_equal(a, b)
@@ -135,7 +135,7 @@ class TestCheckpointCrossLoad:
         cfg, m = _random_map(4)
         p = str(tmp_path / "ref.npz")
         jc.save_map(m, p)
-        got = interop.map_to_numpy(tc.load_map(_port_cfg(cfg), p))
+        got = interop.map_to_numpy(tc.load_map(_port_cfg(cfg), p, device="cpu"))
         np.testing.assert_array_equal(got["kfs"]["desc"], np.asarray(m.kfs.desc))
         np.testing.assert_array_equal(got["kfs"]["obs_lm"], np.asarray(m.kfs.obs_lm))
         np.testing.assert_array_equal(got["lms"]["xyz"], np.asarray(m.lms.xyz))
@@ -144,7 +144,7 @@ class TestCheckpointCrossLoad:
     def test_reference_loads_port_map(self, tmp_path):
         cfg, m = _random_map(5)
         p = str(tmp_path / "port.npz")
-        tc.save_map(interop.map_from_numpy(jax.device_get(m)), p)
+        tc.save_map(interop.map_from_numpy(jax.device_get(m), device="cpu"), p)
         back = jc.load_map(cfg, p)
         assert back.kfs.desc.dtype == jnp.uint32
         np.testing.assert_array_equal(np.asarray(back.kfs.desc), np.asarray(m.kfs.desc))
@@ -156,11 +156,11 @@ class TestCheckpointCrossLoad:
         p = str(tmp_path / "ref.npz")
         jc.save_map(m, p)
         with pytest.raises(ValueError, match="capacity"):
-            tc.load_map(_port_cfg(cfg).replace(max_landmarks=512), p)
+            tc.load_map(_port_cfg(cfg).replace(max_landmarks=512), p, device="cpu")
 
     def test_interop_roundtrip_is_exact(self):
         cfg, m = _random_map(7)
-        back = interop.map_to_numpy(interop.map_from_numpy(jax.device_get(m)))
+        back = interop.map_to_numpy(interop.map_from_numpy(jax.device_get(m), device="cpu"))
         for part in ("kfs", "lms"):
             for name in getattr(m, part)._fields:
                 a = np.asarray(getattr(getattr(m, part), name))
@@ -176,7 +176,7 @@ class TestCheckpointCrossLoad:
         u_right = np.where(rng.random(shape) < 0.5, rng.uniform(0, 600, shape), -1.0).astype(np.float32)
         depth = np.where(u_right >= 0, rng.uniform(0.5, 20, shape), -1.0).astype(np.float32)
         m = m._replace(kfs=m.kfs._replace(u_right=jnp.asarray(u_right), depth=jnp.asarray(depth)))
-        tm = interop.map_from_numpy(jax.device_get(m))
+        tm = interop.map_from_numpy(jax.device_get(m), device="cpu")
         np.testing.assert_array_equal(tm.kfs.u_right.numpy(), u_right)
         np.testing.assert_array_equal(tm.kfs.depth.numpy(), depth)
         back = interop.map_to_numpy(tm)
@@ -188,7 +188,7 @@ class TestCheckpointCrossLoad:
         for stereo_frac in (0.5, 0.0):
             prob = jax.device_get(make_problem(seed=0, cfg=FIXTURE_CFG.replace(bf=FIXTURE_CFG.fx * 0.12),
                                                stereo_frac=stereo_frac)[0])
-            got = interop.problem_from_numpy(prob)
+            got = interop.problem_from_numpy(prob, device="cpu")
             assert got._fields == prob._fields
             for name in prob._fields:
                 a = getattr(prob, name)

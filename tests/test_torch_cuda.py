@@ -11,7 +11,9 @@ in another order than the plain version: its direct outputs within 1e-4 of
 each output's largest magnitude on a well-conditioned problem, bitwise equal
 from run to run, and a 5-iteration ``solve_ba`` within the reference's
 ``kernels/selfcheck`` bounds (R and t 2e-3, xyz 5e-3); the same for its
-stereo variant, with a right-x on half the observations.
+stereo variant, with a right-x on half the observations. Both variants also
+run over P, O and C off the block sizes, with frozen cameras, dead
+landmarks and repeated cameras, and with the camera index given or built.
 """
 
 import numpy as np
@@ -192,12 +194,124 @@ def test_schur_kernel_stereo_solve_matches_plain_solve(cuda):
     assert float((xk.cpu() - xp).abs().max()) < 5e-3
 
 
+def _random_problem(dev, seed, C, P, O, stereo, frozen=False):
+    """``schur_reduce`` arguments on random geometry: cameras near the identity
+    looking at a box of points, each slot's camera drawn at random (so a
+    landmark may see a camera twice), a fifth of the slots pads (camera C),
+    some negative cameras and zero weights, landmark 0 without a live slot,
+    landmark 1 with two live slots of one camera, camera 0 frozen (all of
+    them with ``frozen``); with ``stereo`` half the slots carry a right-x."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)  # noqa: E731
+    R, t = geo.se3_retract(torch.eye(3).repeat(C, 1, 1), torch.zeros(C, 3),
+                           torch.tensor(rng.normal(0, 0.05, (C, 6)), dtype=torch.float32))
+    pts = np.stack([rng.uniform(-3, 3, P), rng.uniform(-2, 2, P), rng.uniform(5, 10, P)], -1)
+    obs_cam = rng.integers(0, C, (P, O))
+    obs_w = rng.choice([0.0, 1.0, 0.694, 0.482], (P, O), p=[0.1, 0.4, 0.3, 0.2])
+    if O >= 2:
+        obs_cam[1, :2], obs_w[1, :2] = 1 % C, 1.0
+    obs_cam[rng.random((P, O)) < 0.2] = C
+    obs_cam[rng.random((P, O)) < 0.05] = -3
+    if O >= 2:
+        obs_cam[1, :2] = 1 % C
+    obs_cam[0] = C
+    safe = np.clip(obs_cam, 0, C - 1)
+    Xc = np.einsum("poij,pj->poi", R.numpy()[safe], pts) + t.numpy()[safe]
+    obs_uv = np.stack([CFG.fx * Xc[..., 0] / Xc[..., 2] + CFG.cx, CFG.fy * Xc[..., 1] / Xc[..., 2] + CFG.cy], -1)
+    obs_uv += rng.normal(0, 1.5, obs_uv.shape)
+    obs_ur = obs_uv[..., 0] - STEREO_CFG.bf / Xc[..., 2] + rng.normal(0, 1.0, (P, O))
+    obs_ur = np.where(rng.random((P, O)) < 0.5, obs_ur, -1.0)
+    cam_opt = rng.random(C) < 0.6
+    cam_opt[0] = False
+    cam_opt[1 % C] = C > 1
+    args = (f32(R).contiguous(), f32(t).contiguous(), torch.tensor(cam_opt & (not frozen), device=dev), f32(pts),
+            torch.tensor(obs_cam, dtype=torch.int32, device=dev), f32(obs_uv), f32(obs_w),
+            torch.tensor(1e-1, device=dev), CFG.fx, CFG.fy, CFG.cx, CFG.cy, CFG.chi2_mono)
+    kw = dict(obs_ur=f32(obs_ur), bf=STEREO_CFG.bf, delta2_stereo=STEREO_CFG.chi2_stereo) if stereo else {}
+    return args, kw
+
+
+def _assert_reduction_matches(got, want):
+    """Each output within 1e-4 of the plain version, relative to the output's
+    largest magnitude; Hll^-1 block by block (the block of a landmark without
+    a live slot holds 1/1e-9)."""
+    for name, g, w in zip(["Hll_inv", "g_l", "Y", "Hcc", "g_c", "g_red", "S_pair"], got, want):
+        assert g.shape == w.shape, name
+        d, m = (g - w).abs(), w.abs()
+        if name == "Hll_inv":
+            assert bool((d.amax((1, 2)) <= 1e-4 * m.amax((1, 2))).all()), name
+        else:
+            assert float(d.max()) <= 1e-4 * float(m.max()) + 1e-30, name
+
+
+@pytest.mark.parametrize("stereo", [False, True], ids=["mono", "stereo"])
+@pytest.mark.parametrize("O", [1, 8, 12, 16, 24, 32])
+@pytest.mark.parametrize("C", [2, 33, 64, 96])
+def test_schur_kernel_shapes_match_plain_and_repeat(cuda, stereo, O, C):
+    """O covers the three lane groups a landmark can take (8 lanes up to O = 8,
+    16 up to 16, a whole warp up to 32 = MAX_OBS); P = 1003 is no multiple of
+    the landmarks a block holds (16, 8 or 4);
+    the problem has a landmark without a live slot and one that sees a camera
+    twice. Damping 0.1 bounds each scaled landmark block's condition number
+    by 31, so f32 rounding stays well inside 1e-4."""
+    args, kw = _random_problem(cuda, 100 * C + O, C, 1003, O, stereo)
+    got = schur.schur_reduce(*args, **kw)
+    again = schur.schur_reduce(*args, **kw)
+    want = schur.schur_reduce_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_reduction_matches(got, want)
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+    if O >= 2:   # the duplicate camera's cross terms are in S_pair's diagonal block
+        assert float(want[6][1 % C, :, 1 % C, :].abs().max()) > 0
+
+
+@pytest.mark.parametrize("stereo", [False, True], ids=["mono", "stereo"])
+def test_schur_kernel_all_cameras_frozen(cuda, stereo):
+    args, kw = _random_problem(cuda, 5, 33, 1003, 12, stereo, frozen=True)
+    got = schur.schur_reduce(*args, **kw)
+    want = schur.schur_reduce_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_reduction_matches(got[:2], want[:2])
+    assert all(int(torch.count_nonzero(g)) == 0 for g in got[2:])
+
+
+@pytest.mark.parametrize("stereo", [False, True], ids=["mono", "stereo"])
+def test_schur_kernel_index_given_or_built(cuda, stereo):
+    args, kw = _random_problem(cuda, 6, 33, 1003, 12, stereo)
+    idx = schur.camera_index(args[4], args[6], 33)
+    got = schur.schur_reduce(*args, **kw, cam_index=idx)
+    own = schur.schur_reduce(*args, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, h) for g, h in zip(got, own))
+    assert int(idx.cam_ptr[-1]) == int(((args[4] >= 0) & (args[4] < 33) & (args[6] > 0)).sum())
+
+
+def test_schur_kernel_scratch_is_linear_in_the_observations(cuda):
+    """At C=64, P=8192, O=12 the wrapper allocates under 40 MB beyond its
+    seven outputs (index included), whatever C^2 x P is."""
+    args, kw = _random_problem(cuda, 7, 64, 8192, 12, True)
+    schur.schur_reduce(*args, **kw)   # builds and loads the library
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = schur.schur_reduce(*args, **kw)
+    torch.cuda.synchronize()
+    outputs = sum(x.numel() * x.element_size() for x in out)
+    assert torch.cuda.max_memory_allocated() - base - outputs < 40e6
+
+
 def test_schur_kernel_raises_where_it_has_no_path(cuda):
     prob = _ba_problem(cuda, n_pts=50)
     lam = torch.tensor(1e-3, device=cuda)
     with pytest.raises(ValueError):
         schur.schur_reduce(*_reduce_args(prob, lam), lm_opt=torch.ones(prob.xyz.shape[0], dtype=torch.bool,
                                                                         device=cuda))
+    args, _ = _random_problem(cuda, 8, 4, 16, schur.MAX_OBS + 1, False)
+    with pytest.raises(ValueError, match="observations per landmark"):
+        schur.schur_reduce(*args)
+    args, _ = _random_problem(cuda, 9, schur.MAX_CAMS + 1, 16, 4, False)
+    with pytest.raises(ValueError, match="cameras"):
+        schur.schur_reduce(*args)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

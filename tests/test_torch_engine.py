@@ -78,7 +78,7 @@ class ReferenceDraws:
 def _run_both(cfg_kw, method, inputs_j, inputs_t):
     jeng = JEngine(JConfig(**cfg_kw))
     jeng.loop_closing_enabled = False
-    teng = TEngine(TConfig(**cfg_kw))
+    teng = TEngine(TConfig(**cfg_kw), device="cpu")
     track_j, track_t = getattr(jeng, method), getattr(teng, method)
     for i, x in enumerate(inputs_j):
         track_j(x, float(i) / 30.0)
@@ -102,7 +102,7 @@ def rendered():
 def observed():
     scene = jsynth.make_scene(seed=4, n_points=400, n_frames=40, cfg=JConfig(**SYNTH_CFG))
     frames = [jsynth.observe(scene, i, noise_px=0.4, desc_flips=6)[0] for i in range(30)]
-    jeng, teng = _run_both(SYNTH_CFG, "track_features", frames, [interop.frame_from_numpy(jax.device_get(f)) for f in frames])
+    jeng, teng = _run_both(SYNTH_CFG, "track_features", frames, [interop.frame_from_numpy(jax.device_get(f), device="cpu") for f in frames])
     return scene, jeng, teng
 
 
@@ -149,7 +149,7 @@ def test_engine_maps_cross_load(observed, saver, tmp_path):
     path = str(tmp_path / "map.npz")
     if saver == "reference":
         jc.save_map(jeng.m, path)
-        got = interop.map_to_numpy(tc.load_map(TConfig(**SYNTH_CFG), path))
+        got = interop.map_to_numpy(tc.load_map(TConfig(**SYNTH_CFG), path, device="cpu"))
         want = jax.device_get(jeng.m)
     else:
         tc.save_map(teng.m, path)

@@ -149,9 +149,9 @@ def kf_inputs():
 
 def _both(kf_inputs):
     mj, frame, R, t, lm_ids, slot, parent = kf_inputs
-    mt = interop.map_from_numpy(jax.device_get(mj))
+    mt = interop.map_from_numpy(jax.device_get(mj), device="cpu")
     jargs = (frame, R, t, lm_ids, jnp.int32(8), jnp.float32(0.25), jnp.int32(slot), jnp.int32(parent))
-    targs = (interop.frame_from_numpy(jax.device_get(frame)), _t(R), _t(t), _t(lm_ids), 8, 0.25, slot, parent)
+    targs = (interop.frame_from_numpy(jax.device_get(frame), device="cpu"), _t(R), _t(t), _t(lm_ids), 8, 0.25, slot, parent)
     return mj, mt, jargs, targs, slot
 
 

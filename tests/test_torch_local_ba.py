@@ -52,7 +52,7 @@ SOLVE_RT, SOLVE_XYZ = 2e-3, 5e-3
 
 
 def _prob_to_torch(prob) -> tba.BAProblem:
-    return interop.problem_from_numpy(jax.device_get(prob))
+    return interop.problem_from_numpy(jax.device_get(prob), device="cpu")
 
 
 def _reduce_args(prob, lam):
@@ -177,7 +177,7 @@ def engine_map(request):
 def test_build_problem_matches_reference(engine_map):
     mj, center, jcfg, tcfg = engine_map
     pj = jax.device_get(jba.build_problem(mj, jnp.int32(center), jcfg))
-    pt = tba.build_problem(interop.map_from_numpy(jax.device_get(mj)), center, tcfg)
+    pt = tba.build_problem(interop.map_from_numpy(jax.device_get(mj), device="cpu"), center, tcfg)
     assert int(np.asarray(pj.obs_ok).sum()) > 100
     assert (pt.obs_ur is not None) == (tcfg.bf > 0)
     if pt.obs_ur is not None:
@@ -196,7 +196,7 @@ def test_local_bundle_adjustment_matches_reference(engine_map):
     noise = np.random.default_rng(3).normal(0, 0.01, mj.lms.xyz.shape).astype(np.float32)
     mj = mj._replace(lms=mj.lms._replace(xyz=mj.lms.xyz + jnp.asarray(noise)))
     rj = jax.device_get(jba.local_bundle_adjustment(mj, center, jcfg, iters=5))
-    rt = interop.map_to_numpy(tba.local_bundle_adjustment(interop.map_from_numpy(jax.device_get(mj)),
+    rt = interop.map_to_numpy(tba.local_bundle_adjustment(interop.map_from_numpy(jax.device_get(mj), device="cpu"),
                                                           center, tcfg, iters=5))
     for part, name in (("kfs", "R"), ("kfs", "t"), ("lms", "xyz")):
         np.testing.assert_allclose(getattr(getattr(rj, part), name), rt[part][name], atol=1e-3, err_msg=name)

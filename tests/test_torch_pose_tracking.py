@@ -155,8 +155,8 @@ def tracked():
     R_pred, t_pred = Rv @ eng._last_R, Rv @ eng._last_t + tv
     args_j = (eng.m, eng._last_lm_ids, frame, jnp.asarray(R_pred), jnp.asarray(t_pred),
               jnp.asarray(eng._last_R), jnp.asarray(eng._last_t), jnp.int32(eng.ref_kf))
-    args_t = (interop.map_from_numpy(jax.device_get(eng.m)), _t(eng._last_lm_ids),
-              interop.frame_from_numpy(jax.device_get(frame)), _t(R_pred), _t(t_pred),
+    args_t = (interop.map_from_numpy(jax.device_get(eng.m), device="cpu"), _t(eng._last_lm_ids),
+              interop.frame_from_numpy(jax.device_get(frame), device="cpu"), _t(R_pred), _t(t_pred),
               _t(eng._last_R), _t(eng._last_t), int(eng.ref_kf))
     return args_j, args_t
 

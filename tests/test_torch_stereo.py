@@ -65,7 +65,7 @@ def _t(x):
 
 
 def _frame_t(frame_j):
-    return interop.frame_from_numpy(jax.device_get(frame_j))
+    return interop.frame_from_numpy(jax.device_get(frame_j), device="cpu")
 
 
 def test_stereo_project_jacobians_match_reference_and_jacfwd():
@@ -106,7 +106,7 @@ def test_observe_matches_reference(stereo):
     st = tsynth.make_scene(seed=9, n_points=900, n_frames=40, cfg=TConfig(**cfg_kw))
     for i in (0, 7):
         fj, idj = jsynth.observe(sj, i, noise_px=0.4, desc_flips=6, drop_rate=0.1)
-        ft, idt = tsynth.observe(st, i, noise_px=0.4, desc_flips=6, drop_rate=0.1)
+        ft, idt = tsynth.observe(st, i, noise_px=0.4, desc_flips=6, drop_rate=0.1, device="cpu")
         np.testing.assert_array_equal(idj, idt)
         fj = jax.device_get(fj)
         for name in ft._fields:
@@ -237,7 +237,7 @@ def tracked():
     R_pred, t_pred = Rv @ eng._last_R, Rv @ eng._last_t + tv
     args_j = (eng.m, eng._last_lm_ids, frame, jnp.asarray(R_pred), jnp.asarray(t_pred),
               jnp.asarray(eng._last_R), jnp.asarray(eng._last_t), jnp.int32(eng.ref_kf))
-    args_t = (interop.map_from_numpy(jax.device_get(eng.m)), _t(eng._last_lm_ids), _frame_t(frame),
+    args_t = (interop.map_from_numpy(jax.device_get(eng.m), device="cpu"), _t(eng._last_lm_ids), _frame_t(frame),
               _t(R_pred), _t(t_pred), _t(eng._last_R), _t(eng._last_t), int(eng.ref_kf))
     return args_j, args_t
 
@@ -263,7 +263,7 @@ def new_keyframe(tracked):
     parent = int(args_j[7])
     jargs = (frame, Rj, tj, lmj, jnp.int32(8), jnp.float32(0.25), jnp.int32(slot), jnp.int32(parent))
     targs = (_frame_t(frame), _t(Rj), _t(tj), _t(lmj), 8, 0.25, slot, parent)
-    return mj, interop.map_from_numpy(jax.device_get(mj)), jargs, targs, slot
+    return mj, interop.map_from_numpy(jax.device_get(mj), device="cpu"), jargs, targs, slot
 
 
 def test_spawn_depth_landmarks_matches_reference(new_keyframe):

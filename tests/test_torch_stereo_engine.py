@@ -58,7 +58,7 @@ RGBD_GAP_M = 3e-2
 def _engines(cfg_kw, sensor):
     jeng = JEngine(JConfig(**cfg_kw, sensor=JSensor(sensor.value)))
     jeng.loop_closing_enabled = False
-    return jeng, TEngine(TConfig(**cfg_kw, sensor=sensor))
+    return jeng, TEngine(TConfig(**cfg_kw, sensor=sensor), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -68,7 +68,7 @@ def observed():
     for i in range(N_STEREO):
         fr, _ = jsynth.observe(scene, i, noise_px=0.4, desc_flips=6)
         jeng.track_features(fr, float(i) / 30.0)
-        teng.track_features(interop.frame_from_numpy(jax.device_get(fr)), float(i) / 30.0)
+        teng.track_features(interop.frame_from_numpy(jax.device_get(fr), device="cpu"), float(i) / 30.0)
     return scene, jeng, teng
 
 
