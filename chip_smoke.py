@@ -7,20 +7,29 @@ Needs one CUDA card and nvcc; exits non-zero without them. It
 1. prints the card's name and power limit (nvidia-smi);
 2. builds kernels A, B and C from dialog_tpu_torch/csrc/ with nvcc for sm_90a,
    one nvcc per source, all started together;
-3. checks kernel A (FAST rank) and kernel B (gated Hamming best/second) against
-   their plain PyTorch versions on the card, bit for bit;
-4. drives the mono path, ``Engine(cfg, device="cuda").track_image`` over 56
-   rendered frames of the TUM-class 640x480 monocular configuration;
-5. checks kernel C (BA Schur reduction) on the local-BA problem built from the
+3. drives the mono path, ``Engine(cfg, device="cuda").track_image`` over 56
+   rendered frames of the TUM-class 640x480 monocular configuration (kernel A
+   once per image, all pyramid levels in one launch; kernel B once per mutual
+   match);
+4. checks kernel C (BA Schur reduction). Direct outputs against the plain
+   version, and bitwise repeatability, on the local-BA problem built from the
    engine's own map, its landmarks and optimized poses moved off the optimum
-   by seeded noise and its near-camera observations left out: direct outputs
-   against the plain version, bitwise repeatability, and a 5-iteration solve
-   against the plain solve;
-6. drives the stereo path, ``Engine.track_stereo`` over 48 rendered 1241x376
+   by seeded noise and its near-camera observations left out. The solve (the
+   path's 5 LM iterations, kernel against plain against float64) on a seeded
+   synthetic window of the path's shape (C=32, P=2048, O=8), so that the
+   check does not depend on where the run's trajectory ended;
+5. drives the stereo path, ``Engine.track_stereo`` over 48 rendered 1241x376
    pairs at the KITTI00 preset (bench.py's capacities), and checks kernel C's
-   stereo (uR) variant as in 5 on that engine's window (C=64, P=8192, O=12);
-7. drives the RGB-D path, ``Engine.track_rgbd`` over 24 rendered 640x480
+   stereo (uR) variant as in 4: direct outputs on that engine's window, the
+   8-iteration solve on a seeded window (C=64, P=8192, O=12, a right-x on
+   half the observations);
+6. drives the RGB-D path, ``Engine.track_rgbd`` over 24 rendered 640x480
    frames with their depth maps at the TUM1 RGB-D settings;
+7. checks kernel A (FAST rank: level by level and all levels of the mono and
+   the stereo pyramid in one launch, odd sizes, a 32-level table) and kernel
+   B (gated Hamming best/second, and the one-pass mutual match against its
+   two-call plain form, with and without each gate, with ties and empty
+   sides) against their plain PyTorch versions on the card, bit for bit;
 8. times each kernel at its path's shapes: the device's own time per call
    under ``torch.profiler`` (the kernel's launches by name, kernel C's two
    stages apart), the pace of back-to-back wrapper calls between two CUDA
@@ -29,7 +38,9 @@ Needs one CUDA card and nvcc; exits non-zero without them. It
    operations over 67 TFLOP/s f32, whichever is larger).
 
 Each path runs on a fresh engine, with every kernel's launch count reset just
-before it and read just after. It prints one JSON line with the kernels, the
+before it and read just after (``hamming_best2``, the standalone form of
+kernel B, is on no path since the mutual mode: its own check launches it). It
+prints one JSON line with the kernels, the
 nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``. Any
 failed check exits non-zero before that line. Nothing here imports JAX.
 """
@@ -56,7 +67,11 @@ LM_NOISE = 3e-3         # landmark perturbation, map units (N(0, .) per coordina
 POSE_NOISE = 5e-3       # optimized-pose perturbation, twist (N(0, .) per component)
 PERTURB_SEED = 5        # numpy seed of both perturbations
 NEAR_DEPTH = 0.05       # observations nearer than this share of the median depth are left out
-COND_MAX = 1e4          # stereo solve: landmarks whose undamped Hll is worse conditioned are held in pixels (check_schur)
+COND_MAX = 1e4          # stereo solve: landmarks whose undamped Hll is worse conditioned are held in pixels (check_schur_solve)
+SOLVE_SEED = 11         # numpy seed of the seeded solve windows
+# the seeded windows' live part: (cameras, two of them fixed; landmarks, each seen by min(O, cameras); right-x share)
+SEEDED_MONO = (11, 250, 0.0)
+SEEDED_STEREO = (6, 486, 0.5)
 ATE_GATE = 0.35         # metres, the reference's image-in-the-loop gate (similarity-aligned)
 # metres, metric ATE (rigid alignment, no scale) of the stereo path: twice the
 # reference engine's own 0.1226 m on the same 48 frames (tools/reference_ate.py, PERF.md)
@@ -69,8 +84,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # the hand-written kernels one wrapper call launches, by (a substring of) their names
 DEVICE_KERNELS = {
-    "fast_nms_rank": ("fast_nms_rank_kernel",),
-    "hamming_best2": ("hamming_best2_kernel",),
+    "fast_nms_rank": ("fast_levels_kernel",),
+    "hamming_best2": ("hamming_scan_kernel",),
+    "hamming_mutual": ("hamming_scan_kernel", "hamming_mutual_kernel"),
     "schur_reduce": ("schur_obs", "schur_cams"),
     "schur_reduce_stereo": ("schur_obs", "schur_cams"),
 }
@@ -79,6 +95,7 @@ HOST_PACED = 1.5        # a wrapper loop this many times slower than the device'
 KERNELS = {
     "fast_nms_rank": ("dialog_tpu_torch/csrc/fast.cu", "dialog_tpu/kernels/fast.py:118"),
     "hamming_best2": ("dialog_tpu_torch/csrc/hamming.cu", "dialog_tpu/kernels/hamming.py:131"),
+    "hamming_mutual": ("dialog_tpu_torch/csrc/hamming.cu", "dialog_tpu/kernels/hamming.py:131"),
     "schur_reduce": ("dialog_tpu_torch/csrc/schur.cu", "dialog_tpu/kernels/schur.py:293"),
     "schur_reduce_stereo": ("dialog_tpu_torch/csrc/schur.cu", "dialog_tpu/kernels/schur.py:293"),
 }
@@ -167,27 +184,59 @@ def nbytes(*tensors) -> int:
 # ---------------------------------------------------------------------------
 
 
-def check_fast(images, cfg, dev) -> float:
-    from dialog_tpu_torch import frontend as fe
-    from dialog_tpu_torch.kernels.fast import fast_nms_rank, fast_nms_rank_plain
+def hold_equal(what: str, got, want) -> float:
+    """Fail unless the two lists of tensors agree in length, shapes, types and
+    every element; returns the largest absolute difference over them (0 for
+    empty tensors)."""
+    torch.cuda.synchronize()
+    if len(got) != len(want) or any(g.shape != w.shape or g.dtype != w.dtype for g, w in zip(got, want)):
+        fail(f"{what}: the kernel's outputs differ from its plain version's in number, shape or type")
+    diff = max([float((g.double() - w.double()).abs().max()) for g, w in zip(got, want) if g.numel()], default=0.0)
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    say(f"{what}: equal={same} max_abs_diff={diff}")
+    if not same:
+        fail(f"{what}: the kernel differs from its plain version")
+    return diff
 
-    worst = 0.0
-    pyr = fe.build_pyramid(torch.from_numpy(images[0]).to(dev), cfg)
-    cases = [(f"level{l} {tuple(img.shape)}", img, (float(cfg.min_th_fast), float(cfg.ini_th_fast), fe.BORDER))
-             for l, img in enumerate(pyr)]
+
+def check_fast(paths, dev) -> float:
+    """Kernel A against its plain version, bit for bit: each level of the
+    first image of every path in ``paths`` ((name, image, config) triples) on
+    its own and all of them in one launch, into plain and into cell-aligned
+    zero-padded outputs; two random images at other thresholds; a list of
+    odd random sizes; a 32-level table."""
+    from dialog_tpu_torch import frontend as fe
+    from dialog_tpu_torch.kernels.fast import (MAX_LEVELS, fast_nms_rank, fast_nms_rank_levels,
+                                               fast_nms_rank_levels_plain, fast_nms_rank_plain)
+
+    err = 0.0
+
+    def hold(name, got, want):
+        nonlocal err
+        err = max(err, hold_equal(f"kernel A {name}", got, want))
+
     rng = np.random.default_rng(1)
-    rnd = torch.from_numpy(rng.uniform(0, 255, (123, 210)).astype(np.float32)).to(dev)
-    cases += [("random 123x210 (7,20,19)", rnd, (7.0, 20.0, 19)), ("random 123x210 (3,10,8)", rnd, (3.0, 10.0, 8))]
-    for name, img, (min_th, th_fast, border) in cases:
-        got = fast_nms_rank(img, min_th, th_fast, border)
-        want = fast_nms_rank_plain(img, min_th, th_fast, border)
-        torch.cuda.synchronize()
-        diff = float((got - want).abs().max())
-        worst = max(worst, diff)
-        say(f"kernel A fast_nms_rank {name}: equal={torch.equal(got, want)} max_abs_diff={diff}")
-        if not torch.equal(got, want):
-            fail(f"kernel A differs from its plain version on {name}")
-    return worst
+    rand = lambda h, w: torch.from_numpy(rng.uniform(0, 255, (h, w)).astype(np.float32)).to(dev)  # noqa: E731
+    for pname, image, cfg in paths:
+        th = (float(cfg.min_th_fast), float(cfg.ini_th_fast), fe.BORDER)
+        pyr = fe.build_pyramid(torch.from_numpy(image).to(dev), cfg)
+        for l, img in enumerate(pyr):
+            hold(f"fast_nms_rank {pname} level{l} {tuple(img.shape)}", [fast_nms_rank(img, *th)],
+                 [fast_nms_rank_plain(img, *th)])
+        for pad in (1, fe.CELL):
+            hold(f"fast_nms_rank_levels {pname} pyramid, {len(pyr)} levels, pad_to={pad}",
+                 fast_nms_rank_levels(pyr, *th, pad_to=pad), fast_nms_rank_levels_plain(pyr, *th, pad_to=pad))
+    rnd = rand(123, 210)
+    for th in [(7.0, 20.0, 19), (3.0, 10.0, 8), (0.0, 5.0, 0), (-1.0, 4.0, 3)]:
+        hold(f"fast_nms_rank random 123x210 {th}", [fast_nms_rank(rnd, *th)], [fast_nms_rank_plain(rnd, *th)])
+    odd = [rand(h, w) for h, w in [(61, 63), (62, 14), (15, 125), (1, 1), (7, 300), (129, 65), (40, 39)]]
+    for th, pad in [((7.0, 20.0, 19), 1), ((2.0, 9.0, 4), 16), ((5.0, 12.0, 1), 5)]:
+        hold(f"fast_nms_rank_levels {len(odd)} odd sizes {th} pad_to={pad}",
+             fast_nms_rank_levels(odd, *th, pad_to=pad), fast_nms_rank_levels_plain(odd, *th, pad_to=pad))
+    many = [rand(30 + 3 * i, 97 - 2 * i) for i in range(MAX_LEVELS)]
+    hold(f"fast_nms_rank_levels {MAX_LEVELS} levels", fast_nms_rank_levels(many, 4.0, 15.0, 6, pad_to=8),
+         fast_nms_rank_levels_plain(many, 4.0, 15.0, 6, pad_to=8))
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -210,30 +259,36 @@ def _hamming_inputs(n, m, seed, dev):
     )
 
 
-def check_hamming(dev) -> float:
-    from dialog_tpu_torch.kernels.hamming import _defaults, hamming_best2, hamming_best2_plain
+def _gate_cases(x):
+    return [
+        ("plain", {}),
+        ("spatial", dict(uv_a=x["uva"], uv_b=x["uvb"], radius2=x["r2"])),
+        ("oct", dict(oct_a=x["oa"], oct_b=x["ob"], octave_band=1)),
+        ("spatial+oct", dict(uv_a=x["uva"], uv_b=x["uvb"], radius2=x["r2"],
+                             oct_a=x["oa"], oct_b=x["ob"], octave_band=1)),
+    ]
 
-    worst = 0.0
+
+def check_hamming(dev) -> tuple[float, float]:
+    """Kernel B against its plain versions, bit for bit: ``hamming_best2``
+    with and without each gate and with column radii, its lowest-column tie
+    rule, and the mutual mode (``mutual_match_fused`` on the card against the
+    two-call plain form) with and without each gate, on few distinct
+    descriptors (ties everywhere), on closed gates and on empty sides.
+    Returns the largest difference of each."""
+    from dialog_tpu_torch.kernels.hamming import (hamming_best2, hamming_best2_filled, mutual_match_fused,
+                                                  mutual_match_plain)
+
+    errs = {"hamming_best2": 0.0, "hamming_mutual": 0.0}
+
+    def hold(kernel, name, got, want):
+        errs[kernel] = max(errs[kernel], hold_equal(f"kernel B {kernel} {name}", got, want))
+
     for n, m in [(700, 900), (2048, 1024)]:
         x = _hamming_inputs(n, m, 0, dev)
-        for name, kw in [
-            ("plain", {}),
-            ("spatial", dict(uv_a=x["uva"], uv_b=x["uvb"], radius2=x["r2"])),
-            ("spatial+oct", dict(uv_a=x["uva"], uv_b=x["uvb"], radius2=x["r2"],
-                                 oct_a=x["oa"], oct_b=x["ob"], octave_band=1)),
-            ("col-radius", dict(uv_a=x["uva"], uv_b=x["uvb"], radius2_cols=x["r2c"])),
-        ]:
-            got = hamming_best2(x["a"], x["b"], x["va"], x["vb"], **kw)
-            filled = _defaults(x["a"], x["b"], kw.get("uv_a"), kw.get("uv_b"), kw.get("radius2"),
-                               kw.get("radius2_cols"), kw.get("oct_a"), kw.get("oct_b"))
-            want = hamming_best2_plain(x["a"], x["b"], x["va"], x["vb"], *filled, kw.get("octave_band", -1))
-            torch.cuda.synchronize()
-            same = all(torch.equal(g, w) for g, w in zip(got, want))
-            diff = max(float((g - w).abs().max()) for g, w in zip(got, want))
-            worst = max(worst, diff)
-            say(f"kernel B hamming_best2 N={n} M={m} {name}: equal={same} max_abs_diff={diff}")
-            if not same:
-                fail(f"kernel B differs from its plain version on N={n} M={m} {name}")
+        for name, kw in _gate_cases(x) + [("col-radius", dict(uv_a=x["uva"], uv_b=x["uvb"], radius2_cols=x["r2c"]))]:
+            hold("hamming_best2", f"N={n} M={m} {name}", hamming_best2(x["a"], x["b"], x["va"], x["vb"], **kw),
+                 hamming_best2_filled(x["a"], x["b"], x["va"], x["vb"], **kw))
     # ties go to the lowest column
     a = _hamming_inputs(8, 8, 7, dev)["a"]
     b = torch.cat([a, a])
@@ -245,7 +300,36 @@ def check_hamming(dev) -> float:
     say(f"kernel B hamming_best2 tie-break lowest column: ok={tie_ok}")
     if not tie_ok:
         fail("kernel B tie-break is not the lowest column")
-    return worst
+
+    # the mutual mode
+    match = dict(max_dist=110, ratio=0.9)
+    for n, m in [(700, 900), (2048, 1024), (8192, 2048)]:
+        x = _hamming_inputs(n, m, 1, dev)
+        for name, kw in _gate_cases(x):
+            args = (x["a"], x["b"], x["va"], x["vb"])
+            hold("hamming_mutual", f"N={n} M={m} {name}", mutual_match_fused(*args, **kw, **match),
+                 mutual_match_plain(*args, **kw, **match))
+    x = _hamming_inputs(600, 500, 2, dev)
+    few = _hamming_inputs(5, 5, 3, dev)["a"]
+    rng = np.random.default_rng(4)
+    ta = few[torch.from_numpy(rng.integers(0, 5, 600)).to(dev)]
+    tb = few[torch.from_numpy(rng.integers(0, 5, 500)).to(dev)]
+    sp = dict(uv_a=x["uva"], uv_b=x["uvb"], radius2=x["r2"])
+    none_a, none_b = torch.zeros_like(x["va"]), torch.zeros_like(x["vb"])
+    for name, args, kw in [
+        ("ties: 5 distinct descriptors", (ta, tb, x["va"], x["vb"]), dict(max_dist=256, ratio=2.0)),
+        ("ties under the gates", (ta, tb, x["va"], x["vb"]), dict(**_gate_cases(x)[3][1], max_dist=256, ratio=2.0)),
+        ("all ties: one descriptor", (ta[:1].expand(600, 8).contiguous(), ta[:1].expand(500, 8).contiguous(),
+                                     x["va"], x["vb"]), dict(max_dist=256, ratio=2.0)),
+        ("closed gates", (x["a"], x["b"], x["va"], x["vb"]),
+         dict(uv_a=x["uva"], uv_b=x["uvb"] + 5000.0, radius2=x["r2"], **match)),
+        ("no valid row", (x["a"], x["b"], none_a, x["vb"]), dict(**sp, **match)),
+        ("no valid column", (x["a"], x["b"], x["va"], none_b), dict(**sp, **match)),
+        ("N=0", (x["a"][:0], x["b"], x["va"][:0], x["vb"]), match),
+        ("M=0", (x["a"], x["b"][:0], x["va"], x["vb"][:0]), match),
+    ]:
+        hold("hamming_mutual", name, mutual_match_fused(*args, **kw), mutual_match_plain(*args, **kw))
+    return errs["hamming_best2"], errs["hamming_mutual"]
 
 
 # ---------------------------------------------------------------------------
@@ -275,11 +359,13 @@ def run_path(name, dev):
 
 
 def check_path(name, eng, scene, launches, *, with_scale: bool, ate_gate: float, min_kfs: int,
-               min_launches: dict) -> dict:
+               min_launches: dict, max_launches: dict) -> dict:
     """The path's gates: state OK at the end, OK share > 0.95 after the
     first OK frame, at least ``min_kfs`` keyframes, a finite ATE below
-    ``ate_gate`` (similarity-aligned with ``with_scale``, else metric), and at
-    least ``min_launches[k]`` launches of each kernel k."""
+    ``ate_gate`` (similarity-aligned with ``with_scale``, else metric), at
+    least ``min_launches[k]`` launches of each kernel k, and at most
+    ``max_launches[k]`` (kernel A: one launch per image, so a return to one
+    launch per pyramid level shows)."""
     from dialog_tpu_torch.eval.ate import ate_rmse
     from dialog_tpu_torch.system import OK
 
@@ -307,6 +393,9 @@ def check_path(name, eng, scene, launches, *, with_scale: bool, ate_gate: float,
     for k, n in min_launches.items():
         if launches[k] < n:
             fail(f"{name}: kernel {k} launched {launches[k]} < {n} times")
+    for k, n in max_launches.items():
+        if launches[k] > n:
+            fail(f"{name}: kernel {k} launched {launches[k]} > {n} times")
     return out
 
 
@@ -368,9 +457,27 @@ def _stereo_kw(prob, cfg) -> dict:
     return dict(obs_ur=prob.obs_ur, bf=cfg.bf, delta2_stereo=cfg.chi2_stereo)
 
 
+def seeded_window(cfg, dev):
+    """A local-BA window of the path's own shape that no trajectory decides:
+    ``optim.synth_problem.make_problem`` from SOLVE_SEED at the engine's
+    capacities (C, P, O and intrinsics of ``cfg``), cameras on an arc around
+    a box of points 6-10 units out, poses and points moved off the truth.
+    Its live part follows the engines' windows after the smoke runs (mono:
+    some 2,000 observations under 9 optimized cameras; stereo: some 2,900
+    under 4, about half of them with a right-x). Returns (problem, median
+    depth)."""
+    from dialog_tpu_torch.optim.synth_problem import make_problem
+
+    n_cams, n_pts, frac = SEEDED_STEREO if cfg.bf > 0 else SEEDED_MONO
+    prob = make_problem(seed=SOLVE_SEED, n_cams=n_cams, n_pts=n_pts, cfg=cfg, stereo_frac=frac, device=dev)[0]
+    return prob, 8.0
+
+
 def check_schur(eng, cfg, dev):
-    """Kernel C on the engine's own local-BA window (see _check_window); its
-    stereo variant when the engine's problem carries a right-x.
+    """Kernel C on the engine's own local-BA window (see _check_window), its
+    stereo variant when the engine's problem carries a right-x: the direct
+    outputs. Then a solve on a seeded window of the same shape
+    (``check_schur_solve``).
 
     Direct outputs: each within REL_TOL_C of the plain version, relative to
     that output's largest magnitude; Hll^-1 block by block, since the 3x3
@@ -379,33 +486,15 @@ def check_schur(eng, cfg, dev):
     diagonally scaled Hll block by (3 + lam) / lam, and at the engine's own
     lam = 1e-4 the plain f32 version is itself about 2e-3 off a float64
     evaluation in Hll^-1 and 2e-4 in g_red (on an H100), so 1e-4 would test
-    f32 rounding, not the kernel.
-
-    Solve: 5 LM iterations from the engine's lam0, on the card and with the
-    plain version on the CPU: R and t within SOLVE_TOL_RT, every live
-    landmark within SOLVE_TOL_XYZ. On a stereo window that holds for the
-    landmarks whose undamped Hll (float64, at the perturbed start) has a
-    condition number at most COND_MAX: up to there both f32 solves stay
-    within half of SOLVE_TOL_XYZ of a float64 solve (PERF.md: the
-    measurements COND_MAX follows from). The others (two near-parallel rays
-    without a stereo row, or one stereo row at sub-pixel disparity, some
-    hundreds of metres out) slide metres along their ray in 5 iterations,
-    and f32 rounding alone moves them by up to a metre there (the plain f32
-    solve against float64, printed beside). They are held where the window
-    sees them: each of their observations' predicted image rows (u, v, uR)
-    after the two solves, within the pixels that SOLVE_TOL_XYZ makes at the
-    window's median depth, fx x SOLVE_TOL_XYZ / median depth. The check
-    fails unless the plain solve moves R or t by at least 2 x SOLVE_TOL_RT
-    and some landmark held in xyz by at least 2 x SOLVE_TOL_XYZ, so that a
-    wrong gradient cannot pass unseen.
+    f32 rounding, not the kernel. The call is repeated and must give the
+    same bits.
 
     Returns (max abs R/t/xyz difference after the solve, largest direct
-    relative error, the problem).
+    relative error, the engine's window).
     """
-    from dialog_tpu_torch.kernels.schur import observation_terms, schur_reduce, schur_reduce_plain
-    from dialog_tpu_torch.optim.local_ba import solve_ba
+    from dialog_tpu_torch.kernels.schur import schur_reduce, schur_reduce_plain
 
-    prob, n_near, z_med = _check_window(eng, cfg, dev)
+    prob, n_near, _ = _check_window(eng, cfg, dev)
     C, (P, O) = prob.R.shape[0], prob.obs_cam.shape
     stereo = prob.obs_ur is not None
     kname = "schur_reduce_stereo" if stereo else "schur_reduce"
@@ -416,12 +505,7 @@ def check_schur(eng, cfg, dev):
     got = schur_reduce(*args, **kw)
     again = schur_reduce(*args, **kw)
     want = schur_reduce_plain(*args, **kw)
-    dbl = lambda x: x.double() if isinstance(x, torch.Tensor) and x.is_floating_point() else x  # noqa: E731
-    kw64 = {k: dbl(v) for k, v in kw.items()}
-    f64 = schur_reduce_plain(*map(dbl, args), **kw64)
-    # condition numbers of the undamped landmark blocks (Hll^-1 has Hll's)
-    ev = torch.linalg.eigvalsh(schur_reduce_plain(*map(dbl, args[:7]), lam.double() * 0.0, *args[8:], **kw64)[0])
-    cond = torch.where(ev[:, 0] > 0, ev[:, 2] / ev[:, 0], float("inf")).cpu()
+    f64 = schur_reduce_plain(*map(_dbl, args), **{k: _dbl(v) for k, v in kw.items()})
     torch.cuda.synchronize()
     n_ur = int((prob.obs_ok & (prob.obs_ur >= 0)).sum()) if stereo else 0
     say(f"kernel C {kname} problem from the engine map (perturbation seed {PERTURB_SEED}): C={C} P={P} O={O} "
@@ -444,11 +528,57 @@ def check_schur(eng, cfg, dev):
     say(f"kernel C {kname} bitwise repeatable: {repeat}")
     if not repeat:
         fail(f"kernel C {kname} is not bitwise repeatable")
+    seeded, z_med = seeded_window(cfg, dev)
+    return check_schur_solve(seeded, cfg, kname, z_med), max_rel, prob
 
-    Rk, tk, xk, ck = solve_ba(prob, cfg, iters=5, chi2_th=cfg.chi2_mono)
+
+def _dbl(x):
+    return x.double() if isinstance(x, torch.Tensor) and x.is_floating_point() else x
+
+
+def check_schur_solve(prob, cfg, kname: str, z_med: float) -> float:
+    """``solve_ba`` over ``prob`` with the path's own number of LM iterations
+    from the engine's lam0: on the problem's device (kernel C on the card),
+    with the plain version on the CPU, and in float64. R and t within
+    SOLVE_TOL_RT of the plain solve, every live landmark within
+    SOLVE_TOL_XYZ. On a stereo window that holds for the
+    landmarks whose undamped Hll (float64, at the start) has a
+    condition number at most COND_MAX: up to there both f32 solves stay
+    within half of SOLVE_TOL_XYZ of a float64 solve (PERF.md: the
+    measurements COND_MAX follows from). The others (two near-parallel rays
+    without a stereo row, or one stereo row at sub-pixel disparity) slide
+    along their ray, and f32 rounding alone moves them far there (the plain
+    f32 solve against float64, printed beside). They are held where the window
+    sees them: each of their observations' predicted image rows (u, v, uR)
+    after the two solves, within the pixels that SOLVE_TOL_XYZ makes at the
+    window's median depth, fx x SOLVE_TOL_XYZ / median depth. The check
+    fails unless the plain solve moves R or t by at least 2 x SOLVE_TOL_RT
+    and some landmark held in xyz by at least 2 x SOLVE_TOL_XYZ, so that a
+    wrong gradient cannot pass unseen.
+
+    Returns the max abs R/t/xyz difference between the two f32 solves.
+    """
+    from dialog_tpu_torch.kernels.schur import observation_terms, schur_reduce_plain
+    from dialog_tpu_torch.optim.local_ba import solve_ba
+
+    stereo = prob.obs_ur is not None
+    iters = cfg.local_ba_iters
     cpu = type(prob)(*[x.cpu() if isinstance(x, torch.Tensor) else x for x in prob])
-    Rp, tp, xp, cp = solve_ba(cpu, cfg, iters=5, chi2_th=cfg.chi2_mono)
-    R64, t64, x64, _ = solve_ba(type(cpu)(*map(dbl, cpu)), cfg, iters=5, chi2_th=cfg.chi2_mono)
+    p64 = type(cpu)(*map(_dbl, cpu))
+    # condition numbers of the undamped landmark blocks (Hll^-1 has Hll's)
+    zero = torch.zeros((), dtype=torch.float64)
+    ev = torch.linalg.eigvalsh(schur_reduce_plain(
+        p64.R, p64.t, p64.cam_opt, p64.xyz, p64.obs_cam, p64.obs_uv, p64.obs_w, zero, cfg.fx, cfg.fy, cfg.cx, cfg.cy,
+        cfg.chi2_mono, **_stereo_kw(p64, cfg))[0])
+    cond = torch.where(ev[:, 0] > 0, ev[:, 2] / ev[:, 0], float("inf"))
+    say(f"kernel C {kname} seeded window (seed {SOLVE_SEED}): C={prob.R.shape[0]} P={prob.obs_cam.shape[0]} "
+        f"O={prob.obs_cam.shape[1]} observations={int(prob.obs_ok.sum())} with a right-x="
+        f"{int((prob.obs_ok & (prob.obs_ur >= 0)).sum()) if stereo else 0} "
+        f"landmarks={int((prob.lm_ids < cfg.max_landmarks).sum())} optimized poses={int(prob.cam_opt.sum())}")
+
+    Rk, tk, xk, ck = solve_ba(prob, cfg, iters=iters, chi2_th=cfg.chi2_mono)
+    Rp, tp, xp, cp = solve_ba(cpu, cfg, iters=iters, chi2_th=cfg.chi2_mono)
+    R64, t64, x64, _ = solve_ba(p64, cfg, iters=iters, chi2_th=cfg.chi2_mono)
     live = cpu.lm_ids < cfg.max_landmarks
     held = live & (cond <= COND_MAX) if stereo else live
     loose = live & ~held
@@ -456,13 +586,14 @@ def check_schur(eng, cfg, dev):
     dt = float((tk.cpu() - tp).abs().max())
     dxyz = (xk.cpu() - xp).abs().amax(1)
     own = (xp.double() - x64).abs().amax(1)   # the plain f32 solve against float64
+    own_rt = max(float((Rp.double() - R64).abs().max()), float((tp.double() - t64).abs().max()))
     dx = float(dxyz[held].max())
     moved_rt = max(float((Rp - cpu.R).abs().max()), float((tp - cpu.t).abs().max()))
     moved_xyz = float((xp - cpu.xyz)[held].abs().max())
     top = lambda x, m: float(torch.where(m, x, 0.0).max())  # noqa: E731
-    say(f"kernel C {kname} solve_ba 5 iters vs plain: max|dR|={dR} max|dt|={dt} max|dxyz|={dx} over "
-        f"{int(held.sum())} of {int(live.sum())} landmarks (plain f32 against float64: {top(own, held)}); "
-        f"cost {float(ck)} vs {float(cp)}")
+    say(f"kernel C {kname} solve_ba {iters} iters vs plain: max|dR|={dR} max|dt|={dt} max|dxyz|={dx} over "
+        f"{int(held.sum())} of {int(live.sum())} landmarks (plain f32 against float64: R/t {own_rt}, "
+        f"xyz {top(own, held)}); cost {float(ck)} vs {float(cp)}")
     px = torch.zeros_like(dxyz)
     px_tol = cfg.fx * SOLVE_TOL_XYZ / z_med
     if stereo:
@@ -482,8 +613,8 @@ def check_schur(eng, cfg, dev):
     if not (dR < SOLVE_TOL_RT and dt < SOLVE_TOL_RT and dx < SOLVE_TOL_XYZ and bool((px[loose] < px_tol).all())):
         fail(f"kernel C {kname} solve_ba result differs from the plain solve beyond tolerance")
     if not (moved_rt >= 2 * SOLVE_TOL_RT and moved_xyz >= 2 * SOLVE_TOL_XYZ):
-        fail("the perturbed window is too close to its optimum for the solve check to show anything")
-    return max(dR, dt, dx), max_rel, prob
+        fail("the seeded window is too close to its optimum for the solve check to show anything")
+    return max(dR, dt, dx)
 
 
 # ---------------------------------------------------------------------------
@@ -491,16 +622,18 @@ def check_schur(eng, cfg, dev):
 # ---------------------------------------------------------------------------
 
 
-def fast_bound(img, out) -> dict:
-    """Kernel A: the image read and the rank written once; per pixel 16
-    differences to the centre, the minimum and the maximum of each of the 16
-    arcs of 9 (8 + 8 operations each), the best arc of either sign (32), the
-    score (1) and the 3x3 maximum with its compare (9)."""
-    return bound(nbytes(img, out), img.numel() * (16 + 16 * 16 + 32 + 1 + 9))
+def fast_bound(imgs, outs) -> dict:
+    """Kernel A: every image read and every rank map written once; per pixel,
+    by the cheapest scheme known for it, 16 differences to the centre, the
+    best arc of 9 of either sign from prefix and suffix extrema of the
+    circle's halves (2 x (28 + 32) min/max), the score (1), the 3x3 maximum
+    with its compare (9) and the rank (two compares and a sum, 3)."""
+    return bound(nbytes(*imgs, *outs), sum(img.numel() for img in imgs) * (16 + 2 * 60 + 1 + 9 + 3))
 
 
 def hamming_bound(x, out, band: int) -> dict:
-    """Kernel B: every argument read and the three results written once; 9
+    """Kernel B, one pass over the gated matrix (``hamming_best2``, or a whole
+    mutual match): every argument read and the results written once; 9
     gate operations (two differences, two products, a sum, a compare, the
     octave difference, its magnitude and compare) for each pair of a valid
     row and a valid column, and 25 (8 xor, 8 popcounts, 7 sums, 2 compares)
@@ -510,8 +643,7 @@ def hamming_bound(x, out, band: int) -> dict:
     valid = x["va"][:, None] & x["vb"][None, :]
     open_ = valid & (gate_d2(x["uva"], x["uvb"]) <= x["r2"][:, None]) \
         & ((x["oa"][:, None] - x["ob"][None, :]).abs() <= band)
-    # the column radii are the wrapper's default, one f32 per column
-    n_in = nbytes(x["a"], x["b"], x["va"], x["vb"], x["uva"], x["uvb"], x["r2"], x["oa"], x["ob"]) + x["b"].shape[0] * 4
+    n_in = nbytes(x["a"], x["b"], x["va"], x["vb"], x["uva"], x["uvb"], x["r2"], x["oa"], x["ob"])
     return bound(n_in + nbytes(*out), 9 * int(valid.sum()) + 25 * int(open_.sum()))
 
 
@@ -546,21 +678,29 @@ def kernel_times(images, cfg, prob, stereo_cfg, stereo_prob, dev) -> dict:
     """For each kernel at its path's shapes: ``ms`` the device's own time per
     call (``device_ms``), ``wrapper_loop_ms`` and ``plain_ms`` the pace of
     back-to-back calls of the wrapper and of the plain version, the bound,
-    and whether the host sets the wrapper loop's pace. Kernel C needs its
+    and whether the host sets the wrapper loop's pace. Kernel A is timed on
+    one image's whole pyramid in one launch (``one_level`` holds the same
+    readings for level 0 alone); kernel B as ``hamming_best2`` and as one
+    whole mutual match (``other_device_ms`` is its clearing of the column
+    keys). Kernel C needs its
     camera index once per solve: ``cam_index_device_ms`` is the device time
     of building it (PyTorch's sort and search kernels), ``cam_index_ms`` the
     pace of back-to-back builds, and ``solve_device_ms`` the device cost of
     one ``solve_ba`` of the path, the index plus ``solve_iters`` calls."""
-    from dialog_tpu_torch.kernels.fast import fast_nms_rank, fast_nms_rank_plain
-    from dialog_tpu_torch.kernels.hamming import _defaults, hamming_best2, hamming_best2_plain
+    from dialog_tpu_torch import frontend as fe
+    from dialog_tpu_torch.kernels.fast import (fast_nms_rank, fast_nms_rank_levels, fast_nms_rank_levels_plain,
+                                               fast_nms_rank_plain)
+    from dialog_tpu_torch.kernels.hamming import (hamming_best2, hamming_best2_filled, mutual_match_fused,
+                                                  mutual_match_plain)
     from dialog_tpu_torch.kernels.schur import camera_index, schur_reduce, schur_reduce_plain
 
-    img = torch.from_numpy(images[0]).to(dev)
-    a_args = (img, float(cfg.min_th_fast), float(cfg.ini_th_fast), 19)
+    pyr = fe.build_pyramid(torch.from_numpy(images[0]).to(dev), cfg)
+    a_args = (float(cfg.min_th_fast), float(cfg.ini_th_fast), fe.BORDER)
+    a_kw = dict(pad_to=fe.CELL)
     x = _hamming_inputs(2048, 1024, 3, dev)
-    h_args = (x["a"], x["b"], x["va"], x["vb"], x["uva"], x["uvb"], x["r2"])
-    h_kw = dict(oct_a=x["oa"], oct_b=x["ob"], octave_band=1)
-    filled = _defaults(x["a"], x["b"], x["uva"], x["uvb"], x["r2"], None, x["oa"], x["ob"])
+    h_args = (x["a"], x["b"], x["va"], x["vb"])
+    h_kw = dict(uv_a=x["uva"], uv_b=x["uvb"], radius2=x["r2"], oct_a=x["oa"], oct_b=x["ob"], octave_band=1)
+    m_kw = dict(**h_kw, max_dist=100, ratio=0.9)
     lam = torch.tensor(1e-4, dtype=torch.float32, device=dev)
 
     def c_args(p, c):
@@ -574,11 +714,19 @@ def kernel_times(images, cfg, prob, stereo_cfg, stereo_prob, dev) -> dict:
         return out
 
     times = {
-        "fast_nms_rank": entry("fast_nms_rank", lambda: fast_nms_rank(*a_args), lambda: fast_nms_rank_plain(*a_args),
-                               fast_bound(img, fast_nms_rank(*a_args)), reps=50),
+        "fast_nms_rank": entry(
+            "fast_nms_rank", lambda: fast_nms_rank_levels(pyr, *a_args, **a_kw),
+            lambda: fast_nms_rank_levels_plain(pyr, *a_args, **a_kw),
+            fast_bound(pyr, fast_nms_rank_levels(pyr, *a_args, **a_kw)), reps=50, levels=len(pyr),
+            one_level=entry("fast_nms_rank", lambda: fast_nms_rank(pyr[0], *a_args),
+                            lambda: fast_nms_rank_plain(pyr[0], *a_args),
+                            fast_bound(pyr[:1], [fast_nms_rank(pyr[0], *a_args)]), reps=50)),
         "hamming_best2": entry("hamming_best2", lambda: hamming_best2(*h_args, **h_kw),
-                               lambda: hamming_best2_plain(x["a"], x["b"], x["va"], x["vb"], *filled, 1),
+                               lambda: hamming_best2_filled(*h_args, **h_kw),
                                hamming_bound(x, hamming_best2(*h_args, **h_kw), 1), reps=50),
+        "hamming_mutual": entry("hamming_mutual", lambda: mutual_match_fused(*h_args, **m_kw),
+                                lambda: mutual_match_plain(*h_args, **m_kw),
+                                hamming_bound(x, mutual_match_fused(*h_args, **m_kw), 1), reps=50),
     }
     # kernel C as solve_ba calls it: the camera index built once, outside the call
     for name, p, c in [("schur_reduce", prob, cfg), ("schur_reduce_stereo", stereo_prob, stereo_cfg)]:
@@ -617,33 +765,39 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 say(f"ptxas {name}: {line.strip()}")
 
-    # mono path (kernels A and B are checked on its first frame's pyramid)
+    # mono path: kernel A once per image (all pyramid levels in one launch),
+    # kernel B once per mutual match
     scene, images, eng, fps, launches = run_path("mono", dev)
     cfg = eng.cfg
-    err_a = check_fast(images, cfg, dev)
-    err_b = check_hamming(dev)
     say(f"mono path: {fps:.3f} frames/s over frames {FPS_FIRST}-{N_FRAMES - 1} on {smi}")
     check_path("mono", eng, scene, launches, with_scale=True, ate_gate=ATE_GATE, min_kfs=4,
-               min_launches={"fast_nms_rank": 8 * N_FRAMES, "hamming_best2": 1, "schur_reduce": 1})
+               min_launches={"fast_nms_rank": N_FRAMES, "hamming_mutual": 1, "schur_reduce": 1},
+               max_launches={"fast_nms_rank": N_FRAMES})
     err_c, rel_c, prob = check_schur(eng, cfg, dev)
 
     # stereo path: two extractions per frame; every local BA takes the uR variant
-    sscene, _, seng, sfps, slaunches = run_path("stereo", dev)
+    sscene, simages, seng, sfps, slaunches = run_path("stereo", dev)
     n_st = len(seng.trajectory)
     say(f"stereo path: {sfps:.3f} frames/s over frames {FPS_FIRST}-{n_st - 1} on {smi}")
     check_path("stereo", seng, sscene, slaunches, with_scale=False, ate_gate=STEREO_ATE_GATE, min_kfs=4,
-               min_launches={"fast_nms_rank": 16 * n_st, "hamming_best2": 1, "schur_reduce_stereo": 1})
-    if slaunches["schur_reduce"] != 0:
-        fail(f"stereo path: the mono variant of kernel C launched {slaunches['schur_reduce']} times")
+               min_launches={"fast_nms_rank": 2 * n_st, "hamming_mutual": 1, "schur_reduce_stereo": 1},
+               max_launches={"fast_nms_rank": 2 * n_st, "schur_reduce": 0})
     err_cs, rel_cs, sprob = check_schur(seng, seng.cfg, dev)
 
     rscene, _, reng, rfps, rlaunches = run_path("rgbd", dev)
-    say(f"rgbd path: {rfps:.3f} frames/s over frames {FPS_FIRST}-{len(reng.trajectory) - 1} on {smi}")
+    n_rg = len(reng.trajectory)
+    say(f"rgbd path: {rfps:.3f} frames/s over frames {FPS_FIRST}-{n_rg - 1} on {smi}")
     check_path("rgbd", reng, rscene, rlaunches, with_scale=False, ate_gate=RGBD_ATE_GATE, min_kfs=3,
-               min_launches={"schur_reduce_stereo": 1})
+               min_launches={"fast_nms_rank": n_rg, "hamming_mutual": 1, "schur_reduce_stereo": 1},
+               max_launches={"fast_nms_rank": n_rg})
+
+    # kernels A and B against their plain versions (after the paths: these launches do not count)
+    err_a = check_fast([("mono", images[0], cfg), ("stereo", simages[0][0], seng.cfg)], dev)
+    err_b, err_m = check_hamming(dev)
 
     times = kernel_times(images, cfg, prob, seng.cfg, sprob, dev)
-    errs = {"fast_nms_rank": err_a, "hamming_best2": err_b, "schur_reduce": err_c, "schur_reduce_stereo": err_cs}
+    errs = {"fast_nms_rank": err_a, "hamming_best2": err_b, "hamming_mutual": err_m, "schur_reduce": err_c,
+            "schur_reduce_stereo": err_cs}
     rels = {"schur_reduce": rel_c, "schur_reduce_stereo": rel_cs}
     by_path = {"mono": launches, "stereo": slaunches, "rgbd": rlaunches}
     # every launch is above these bounds: the shortest single kernel of the timing runs is the practical floor

@@ -26,7 +26,7 @@ import torch
 from . import ops
 from .config import EngineConfig
 from .containers import FrameArrays
-from .kernels.fast import fast_nms_rank
+from .kernels.fast import fast_nms_rank_levels
 
 PATCH_R = 15          # orientation / descriptor patch radius
 PATCH = 2 * PATCH_R + 1
@@ -137,20 +137,26 @@ def gaussian_blur(img: torch.Tensor, sigma: float = 2.0, radius: int = 3) -> tor
 # ---------------------------------------------------------------------------
 
 
-def detect_level(img_l: torch.Tensor, n_take: int, th_fast: float, min_th_fast: float, cell: int = 16):
+CELL = 16   # side of the detector's uniformity cells, pixels
+
+
+def detect_level(img_l: torch.Tensor, n_take: int, th_fast: float, min_th_fast: float, cell: int = CELL):
     """Up to n_take FAST keypoints on one level with spatial uniformity.
 
     Returns (uv f32[n_take, 2] level coords, score f32[n_take], valid bool).
     """
-    H, W = img_l.shape
-    s = fast_nms_rank(img_l, float(min_th_fast), float(th_fast), BORDER)
-    Hc, Wc = -(-H // cell), -(-W // cell)
-    padded = torch.zeros((Hc * cell, Wc * cell), dtype=s.dtype, device=s.device)
-    padded[:H, :W] = s
+    padded = fast_nms_rank_levels([img_l], float(min_th_fast), float(th_fast), BORDER, pad_to=cell)[0]
+    return select_keypoints(padded, n_take, cell)
+
+
+def select_keypoints(padded: torch.Tensor, n_take: int, cell: int = CELL):
+    """The n_take best of a level's per-cell best ranks. ``padded`` is the
+    level's rank map, zero-padded to whole cells (kernel A writes it so)."""
+    Hc, Wc = padded.shape[0] // cell, padded.shape[1] // cell
     cells = padded.reshape(Hc, cell, Wc, cell).permute(0, 2, 1, 3).reshape(Hc * Wc, cell * cell)
     k = max(1, min(cell * cell, -(-2 * n_take // (Hc * Wc))))
     topv, topi = ops.top_k(cells, k)
-    cidx = torch.arange(Hc * Wc, device=s.device)[:, None]
+    cidx = torch.arange(Hc * Wc, device=padded.device)[:, None]
     py = (cidx // Wc) * cell + topi // cell
     px = (cidx % Wc) * cell + topi % cell
     gv, gi = ops.top_k(topv.reshape(-1), n_take)
@@ -267,12 +273,12 @@ def _extract_one(img: torch.Tensor, cfg: EngineConfig) -> FrameArrays:
     dev = img.device
     pyr = build_pyramid(img, cfg)
     counts = features_per_level(cfg)
+    # kernel A: every level's rank map in one launch, each in its cell-aligned buffer
+    ranks = fast_nms_rank_levels(pyr, float(cfg.min_th_fast), float(cfg.ini_th_fast), BORDER, pad_to=CELL)
     all_uv, all_score, all_valid, all_oct, all_praw, all_pblur = [], [], [], [], [], []
     for l in range(cfg.n_levels):
         img_l = pyr[l]
-        uv, score, valid = detect_level(
-            img_l, counts[l], float(cfg.ini_th_fast), float(cfg.min_th_fast)
-        )
+        uv, score, valid = select_keypoints(ranks[l], counts[l])
         praw, pblur = _gather_patches2(img_l, gaussian_blur(img_l), uv)
         scale = torch.tensor(cfg.scale_factor**l, dtype=torch.float32)
         all_uv.append(uv * scale.to(dev))

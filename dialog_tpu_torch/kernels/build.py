@@ -9,7 +9,8 @@ library with a plain C interface,
 under ``build/`` at the checkout's root (listed in .gitignore). The file name
 carries a hash of the sources and flags, so an edited kernel rebuilds; a file
 lock keeps concurrent processes from building the same library twice. Every
-pointer and the stream cross the boundary as ``c_void_p``.
+pointer and the stream cross the boundary as ``c_void_p``; ``SIGNATURES``
+holds the entry points' types, set once when a library is loaded.
 """
 
 from __future__ import annotations
@@ -31,6 +32,18 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# library -> entry point -> (result type, argument types)
+SIGNATURES: dict[str, dict[str, tuple]] = {
+    "fast": {
+        "fast_levels_launch": (_I, [_P, _P, _P, _I, _F, _F, _I, _P]),
+    },
+    "hamming": {
+        "hamming_best2_launch": (_I, [_P] * 10 + [_I] * 3 + [_P] * 4),
+        "hamming_mutual_launch": (_I, [_P] * 9 + [_I] * 4 + [_F] + [_P] * 6),
+    },
+}
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_seconds: dict[str, float] = {}   # name -> nvcc wall time (0.0 = cached)
@@ -77,6 +90,9 @@ def load(name: str) -> ctypes.CDLL:
                 raise RuntimeError(f"nvcc failed for {src.name}:\n{build_log[name]}")
             os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
+    for fn, (restype, argtypes) in SIGNATURES.get(name, {}).items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
     _libs[name] = lib
     return lib
 

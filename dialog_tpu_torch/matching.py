@@ -5,7 +5,8 @@ checks, the rotation-consistency histogram and the projection/window-gated
 search. Dense policies build an [N, M] distance matrix with masks doing the
 gating; ``match_projected`` always goes through kernel B
 (``kernels.hamming.mutual_match_fused``), which gives the same answer as
-``match_mutual`` on the dense gated matrix without materializing it.
+``match_mutual`` on the dense gated matrix without materializing it (on the
+card in one pass over the gated pairs).
 """
 
 from __future__ import annotations

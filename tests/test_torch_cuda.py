@@ -6,7 +6,12 @@ imports JAX, so on such a machine skip it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: A and B are integer and min/max computations, bit-exact. C sums
+Tolerances: A and B are integer and min/max computations, bit-exact: kernel
+A level by level and all levels of a pyramid in one launch (plain and
+cell-padded outputs, odd sizes, a full 32-level table), kernel B as
+``hamming_best2`` and in its mutual mode (one pass, packed column keys)
+against the two-call plain form, with B whole in shared memory and in chunks.
+C sums
 in another order than the plain version: its direct outputs within 1e-4 of
 each output's largest magnitude on a well-conditioned problem, bitwise equal
 from run to run, and a 5-iteration ``solve_ba`` within the reference's
@@ -121,12 +126,13 @@ def test_hamming_kernel_bit_exact(cuda, case):
     kw = {"plain": {}, "spatial": dict(uv_a=uva, uv_b=uvb, radius2=r2),
           "spatial+oct": dict(uv_a=uva, uv_b=uvb, radius2=r2, oct_a=oa, oct_b=ob, octave_band=1),
           "col-radius": dict(uv_a=uva, uv_b=uvb, radius2_cols=r2c)}[case]
+    before = dict(common.launches)
     got = hamming.hamming_best2(a, b, va, vb, **kw)
-    filled = hamming._defaults(a, b, kw.get("uv_a"), kw.get("uv_b"), kw.get("radius2"), kw.get("radius2_cols"),
-                               kw.get("oct_a"), kw.get("oct_b"))
-    want = hamming.hamming_best2_plain(a, b, va, vb, *filled, kw.get("octave_band", -1))
+    want = hamming.hamming_best2_filled(a, b, va, vb, **kw)
     torch.cuda.synchronize()
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert common.launches["hamming_best2"] == before["hamming_best2"] + 1
+    assert common.launches["hamming_mutual"] == before["hamming_mutual"]
 
 
 def test_hamming_kernel_ties_go_to_lowest_column(cuda):
@@ -135,6 +141,177 @@ def test_hamming_kernel_ties_go_to_lowest_column(cuda):
                                               torch.ones(16, dtype=torch.bool, device=cuda))
     assert idx.cpu().tolist() == list(range(8))
     assert int(best.abs().sum()) == 0 and int(second.abs().sum()) == 0
+
+
+def _rand_img(rng, h, w, dev):
+    return torch.from_numpy(rng.uniform(0, 255, (h, w)).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("case", ["mono-pyramid", "mono-pyramid-cells", "kitti-pyramid-cells", "odd-sizes",
+                                  "odd-sizes-pad5", "32-levels", "no-border", "negative-min-th"])
+def test_fast_levels_bit_exact_in_one_launch(cuda, case):
+    rng = np.random.default_rng(3)
+    th, pad = (7.0, 20.0, fe.BORDER), 1
+    if case.startswith("mono"):
+        scene = synth.make_scene(seed=3, n_points=2500, n_frames=168, cfg=CFG)
+        levels = fe.build_pyramid(torch.from_numpy(synth.render_image(scene, 5)).to(cuda), CFG)
+        pad = fe.CELL if case.endswith("cells") else 1
+    elif case.startswith("kitti"):
+        kcfg = CFG.replace(width=1241, height=376)
+        levels, pad = fe.build_pyramid(_rand_img(rng, 376, 1241, cuda), kcfg), fe.CELL
+    elif case.startswith("odd"):
+        levels = [_rand_img(rng, h, w, cuda) for h, w in [(61, 63), (62, 14), (15, 125), (1, 1), (7, 300),
+                                                          (129, 65), (40, 39), (14, 62), (28, 124)]]
+        th, pad = ((2.0, 9.0, 4), 5) if case.endswith("pad5") else ((7.0, 20.0, 19), 1)
+    elif case == "32-levels":
+        levels, th, pad = [_rand_img(rng, 30 + 3 * i, 97 - 2 * i, cuda) for i in range(fast.MAX_LEVELS)], (4.0, 15.0, 6), 8
+    elif case == "no-border":
+        levels, th = [_rand_img(rng, 90, 131, cuda), _rand_img(rng, 33, 70, cuda)], (0.0, 5.0, 0)
+    else:
+        levels, th = [_rand_img(rng, 90, 131, cuda), _rand_img(rng, 33, 70, cuda)], (-1.0, 4.0, 3)
+    before = common.launches["fast_nms_rank"]
+    got = fast.fast_nms_rank_levels(levels, *th, pad_to=pad)
+    assert common.launches["fast_nms_rank"] == before + 1
+    want = fast.fast_nms_rank_levels_plain(levels, *th, pad_to=pad)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == len(levels)
+    for l, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and torch.equal(g, w), (l, tuple(levels[l].shape))
+    if case == "mono-pyramid":
+        assert sum(int((g > 0).sum()) for g in got) > 500   # the image has corners to find
+
+
+def test_fast_levels_table_is_reused_across_calls(cuda):
+    """One cached table template serves every call with the same level
+    shapes: each call fills its own copy's pointers, and an earlier call's
+    outputs stay as they were."""
+    rng = np.random.default_rng(5)
+    first = [_rand_img(rng, 200, 260, cuda), _rand_img(rng, 77, 91, cuda)]
+    second = [_rand_img(rng, 200, 260, cuda), _rand_img(rng, 77, 91, cuda)]
+    got1 = fast.fast_nms_rank_levels(first, 7.0, 20.0, 19, pad_to=16)
+    got2 = fast.fast_nms_rank_levels(second, 7.0, 20.0, 19, pad_to=16)
+    torch.cuda.synchronize()
+    for got, levels in ((got1, first), (got2, second)):
+        want = fast.fast_nms_rank_levels_plain(levels, 7.0, 20.0, 19, pad_to=16)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert not torch.equal(got1[0], got2[0])
+
+
+def test_fast_levels_raises_on_what_the_kernel_does_not_take(cuda):
+    img = torch.zeros((40, 50), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="levels"):
+        fast.fast_nms_rank_levels([img] * (fast.MAX_LEVELS + 1), 7.0, 20.0, 19)
+    with pytest.raises(ValueError, match="contiguous"):
+        fast.fast_nms_rank_levels([img, img.T], 7.0, 20.0, 19)
+    with pytest.raises(ValueError):
+        fast.fast_nms_rank_levels([img, img.double()], 7.0, 20.0, 19)
+    with pytest.raises(ValueError):
+        fast.fast_nms_rank_levels([img, img.cpu()], 7.0, 20.0, 19)
+    with pytest.raises(ValueError, match="pad_to"):
+        fast.fast_nms_rank_levels([img], 7.0, 20.0, 19, pad_to=0)
+    assert fast.fast_nms_rank_levels([], 7.0, 20.0, 19) == []
+
+
+def _match_inputs(n, m, seed, dev):
+    """Random descriptors, positions, radii and octaves; the first half of the
+    shorter side has a partner on the other: its descriptor with a few bits
+    flipped, a few pixels away, in the same octave."""
+    rng = np.random.default_rng(seed)
+    to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    a = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
+    b = rng.integers(0, 2**32, (m, 8), dtype=np.uint32)
+    uva = rng.uniform(0, 640, (n, 2)).astype(np.float32)
+    uvb = rng.uniform(0, 640, (m, 2)).astype(np.float32)
+    oa, ob = rng.integers(0, 8, n).astype(np.int32), rng.integers(0, 8, m).astype(np.int32)
+    k = min(n, m) // 2
+    b[:k] = a[:k] ^ (rng.integers(0, 2, (k, 8), dtype=np.uint32) << rng.integers(0, 32, (k, 8), dtype=np.uint32))
+    uvb[:k] = uva[:k] + rng.normal(0, 3, (k, 2)).astype(np.float32)
+    ob[:k] = oa[:k]
+    return dict(a=to(a.view(np.int32)), b=to(b.view(np.int32)),
+                va=to(rng.random(n) > 0.1), vb=to(rng.random(m) > 0.1), uva=to(uva), uvb=to(uvb),
+                r2=to((rng.uniform(20, 200, n) ** 2).astype(np.float32)),
+                r2c=to((rng.uniform(20, 200, m) ** 2).astype(np.float32)), oa=to(oa), ob=to(ob))
+
+
+def _gates(x, case):
+    return {"plain": {}, "spatial": dict(uv_a=x["uva"], uv_b=x["uvb"], radius2=x["r2"]),
+            "oct": dict(oct_a=x["oa"], oct_b=x["ob"], octave_band=1),
+            "spatial+oct": dict(uv_a=x["uva"], uv_b=x["uvb"], radius2=x["r2"], oct_a=x["oa"], oct_b=x["ob"],
+                                octave_band=1)}[case]
+
+
+# B whole in shared memory (up to 4,736 columns) and in chunks of 2,368 (two and three chunks)
+@pytest.mark.parametrize("shape", [(700, 900), (2048, 1024), (8192, 2048), (37, 4736), (300, 4737), (530, 6000)])
+@pytest.mark.parametrize("case", ["plain", "spatial", "oct", "spatial+oct"])
+def test_mutual_match_kernel_bit_exact(cuda, shape, case):
+    x = _match_inputs(*shape, 21, cuda)
+    kw = dict(**_gates(x, case), max_dist=110, ratio=0.9)
+    before = dict(common.launches)
+    got = hamming.mutual_match_fused(x["a"], x["b"], x["va"], x["vb"], **kw)
+    want = hamming.mutual_match_plain(x["a"], x["b"], x["va"], x["vb"], **kw)
+    torch.cuda.synchronize()
+    assert all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+    assert common.launches["hamming_mutual"] == before["hamming_mutual"] + 1
+    assert common.launches["hamming_best2"] == before["hamming_best2"]
+    assert int((got[0] >= 0).sum()) > min(shape) // 8   # most partners are found
+
+
+@pytest.mark.parametrize("case", ["few-descriptors", "few-descriptors-gated", "one-descriptor", "closed-gates",
+                                  "no-valid-row", "no-valid-column", "N=0", "M=0", "N=1", "M=1"])
+def test_mutual_match_kernel_ties_and_empty_sides(cuda, case):
+    x = _match_inputs(600, 500, 22, cuda)
+    rng = np.random.default_rng(23)
+    few = x["a"][:5]
+    a, b, va, vb = x["a"], x["b"], x["va"], x["vb"]
+    kw = dict(max_dist=110, ratio=0.9)
+    if case.startswith("few"):
+        a = few[torch.from_numpy(rng.integers(0, 5, 600)).to(cuda)]
+        b = few[torch.from_numpy(rng.integers(0, 5, 500)).to(cuda)]
+        kw = dict(max_dist=256, ratio=2.0, **(_gates(x, "spatial+oct") if case.endswith("gated") else {}))
+    elif case == "one-descriptor":
+        a, b = few[:1].expand(600, 8).contiguous(), few[:1].expand(500, 8).contiguous()
+        kw = dict(max_dist=256, ratio=2.0)
+    elif case == "closed-gates":
+        kw.update(uv_a=x["uva"], uv_b=x["uvb"] + 5000.0, radius2=x["r2"])
+    elif case == "no-valid-row":
+        va = torch.zeros_like(va)
+    elif case == "no-valid-column":
+        vb = torch.zeros_like(vb)
+    elif case in ("N=0", "N=1"):
+        n = int(case[-1])
+        a, va = a[:n], torch.ones_like(va[:n])
+    else:
+        m = int(case[-1])
+        b, vb = b[:m], torch.ones_like(vb[:m])
+    got = hamming.mutual_match_fused(a, b, va, vb, **kw)
+    want = hamming.mutual_match_plain(a, b, va, vb, **kw)
+    torch.cuda.synchronize()
+    assert all(g.shape == w.shape and torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("case", ["plain", "spatial+oct", "col-radius"])
+def test_hamming_kernel_bit_exact_in_chunks(cuda, case):
+    x = _match_inputs(530, 6000, 24, cuda)
+    kw = dict(uv_a=x["uva"], uv_b=x["uvb"], radius2_cols=x["r2c"]) if case == "col-radius" else _gates(x, case)
+    got = hamming.hamming_best2(x["a"], x["b"], x["va"], x["vb"], **kw)
+    want = hamming.hamming_best2_filled(x["a"], x["b"], x["va"], x["vb"], **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_hamming_kernels_raise_on_what_they_do_not_take(cuda):
+    x = _match_inputs(64, 48, 25, cuda)
+    with pytest.raises(ValueError, match="together"):
+        hamming.mutual_match_fused(x["a"], x["b"], x["va"], x["vb"], uv_a=x["uva"])
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.zeros((64 * 8 + 1,), dtype=torch.int32, device=cuda)
+        hamming.mutual_match_fused(flat[1:].view(64, 8), x["b"], x["va"], x["vb"])
+    with pytest.raises(ValueError, match="contiguous"):
+        hamming.mutual_match_fused(x["a"], x["b"], x["va"], x["vb"], uv_a=x["uva"].T.contiguous().T, uv_b=x["uvb"])
+    n = 1 << hamming.ROW_BITS
+    big = torch.zeros((n, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="rows"):
+        hamming.mutual_match_fused(big, x["b"], torch.ones(n, dtype=torch.bool, device=cuda), x["vb"])
 
 
 def test_schur_kernel_matches_plain_and_repeats(cuda):

@@ -4,7 +4,8 @@ Tolerance: bit-exact throughout -- every output is an integer index or
 distance. Kernel B is held against the reference's ``_reference`` on the four
 ``selfcheck.check_hamming`` cases and against its Pallas body run in
 interpret mode (including the lowest-column tie rule). ``match_projected``
-always takes the port's fused two-launch path; the reference's CPU path
+always takes the port's fused path (kernel B's mutual mode on the card, its
+two-call plain form here); the reference's CPU path
 (``match_mutual`` on the dense gated matrix) must give the same matches.
 """
 
