@@ -25,12 +25,29 @@ Needs one CUDA card and nvcc; exits non-zero without them. It
    half the observations);
 6. drives the RGB-D path, ``Engine.track_rgbd`` over 24 rendered 640x480
    frames with their depth maps at the TUM1 RGB-D settings;
-7. checks kernel A (FAST rank: level by level and all levels of the mono and
-   the stereo pyramid in one launch, odd sizes, a 32-level table) and kernel
+7. drives the batched paths at bench.py's batch of 8. ``mono_batch``: 8 frames
+   one by one, then 12 batches through ``frontend.extract_features_batch``
+   (kernel A once for the whole batch) and ``Engine.track_batch`` at keyframe
+   interval 10, ``flush`` at the end; the first half of the batch at frame 48
+   is blanked, so the run goes LOST mid-batch, re-tracks and relocalizes
+   (vocabulary, PnP RANSAC). ``stereo_batch``: 4 pairs one by one, then 5
+   batches through ``stereo.extract_and_match_stereo_batch`` (16 images in one
+   launch of kernel A). Beside each, a per-frame twin on the same frames, and
+   a ``torch.profiler`` window of 16 frames behind both (launches, syncs and
+   ``.item()`` reads per frame: printed, not gated). Then a relocalization
+   probe on the mono_batch engine (a tracked frame, the engine set LOST,
+   ``_try_relocalize``: the pose within 0.03 map units and 1 degree of the
+   tracked one), with the seconds of one vocabulary training, one
+   ``solve_pnp_ransac`` and one relocalization; and 24 frames through
+   ``Engine.track_features_async``;
+8. checks kernel A (FAST rank: level by level and all levels of the mono and
+   the stereo pyramid in one launch, odd sizes, a 32-level table; over a batch:
+   one real batch of each batched path against the plain version and against
+   one-image launches, odd sizes) and kernel
    B (gated Hamming best/second, and the one-pass mutual match against its
    two-call plain form, with and without each gate, with ties and empty
    sides) against their plain PyTorch versions on the card, bit for bit;
-8. times each kernel at its path's shapes: the device's own time per call
+9. times each kernel at its path's shapes: the device's own time per call
    under ``torch.profiler`` (the kernel's launches by name, kernel C's two
    stages apart), the pace of back-to-back wrapper calls between two CUDA
    events (host work included), the plain version likewise, and the least
@@ -55,7 +72,8 @@ import time
 import numpy as np
 import torch
 
-from dialog_tpu_torch.profile_main_path import FPS_FIRST, N_FRAMES, WORKLOADS, track_frames
+from dialog_tpu_torch.profile_main_path import (BATCH, FPS_FIRST, MONO_BATCH_FRAMES, N_FRAMES, STEREO_BATCH_FRAMES,
+                                                WORKLOADS, extract_batch, profiled, track_batches, track_frames)
 
 # tolerances: A and B are integer/min-max computations and must be bit-exact;
 # C sums in another order than the plain version (f32)
@@ -77,6 +95,19 @@ ATE_GATE = 0.35         # metres, the reference's image-in-the-loop gate (simila
 # reference engine's own 0.1226 m on the same 48 frames (tools/reference_ate.py, PERF.md)
 STEREO_ATE_GATE = 0.25
 RGBD_ATE_GATE = 0.05    # metres, metric: the reference's stereo/RGB-D gate (tests/test_stereo_rgbd.py)
+# the batched paths: (workload, frames, frames fed one by one first, first frame of the half-blanked batch,
+# whether a codebook must exist by then and a relocalization must succeed). The stereo run is too short for a
+# codebook (vocab_min_kfs keyframes): its blanked frames are recovered by re-tracking from the last pose.
+BATCH_PATHS = {"mono_batch": ("mono", MONO_BATCH_FRAMES, 8, 48, True),
+               "stereo_batch": ("stereo", STEREO_BATCH_FRAMES, 4, 28, False)}
+KF_INTERVAL = 10        # bench.py's primary workload, tum_mono_kf10
+PROFILE_FRAMES = 2 * BATCH   # the profiler's window behind each batched path, and behind its per-frame twin
+ASYNC_FRAMES = 24       # the pipelined per-frame probe
+BATCH_OK_SHARE = 0.9    # OK share after the first OK frame, outside the blanked frames
+# the relocalization probe: a tracked frame relocalized from LOST, against the pose it was tracked at.
+# Positions in map units (a monocular map's median depth is 1 at initialization), rotations in degrees.
+RELOC_POS_TOL = 0.03
+RELOC_ROT_TOL_DEG = 1.0
 
 # published peaks of one H100 SXM at its full 700 W: HBM3, and f32 outside the tensor cores
 # (integer and min/max operations are counted at the same rate)
@@ -85,6 +116,7 @@ F32_OPS_PER_S = 67e12
 # the hand-written kernels one wrapper call launches, by (a substring of) their names
 DEVICE_KERNELS = {
     "fast_nms_rank": ("fast_levels_kernel",),
+    "fast_nms_rank_batch": ("fast_levels_kernel",),
     "hamming_best2": ("hamming_scan_kernel",),
     "hamming_mutual": ("hamming_scan_kernel", "hamming_mutual_kernel"),
     "schur_reduce": ("schur_obs", "schur_cams"),
@@ -94,6 +126,7 @@ HOST_PACED = 1.5        # a wrapper loop this many times slower than the device'
 
 KERNELS = {
     "fast_nms_rank": ("dialog_tpu_torch/csrc/fast.cu", "dialog_tpu/kernels/fast.py:118"),
+    "fast_nms_rank_batch": ("dialog_tpu_torch/csrc/fast.cu", "dialog_tpu/kernels/fast.py:118"),
     "hamming_best2": ("dialog_tpu_torch/csrc/hamming.cu", "dialog_tpu/kernels/hamming.py:131"),
     "hamming_mutual": ("dialog_tpu_torch/csrc/hamming.cu", "dialog_tpu/kernels/hamming.py:131"),
     "schur_reduce": ("dialog_tpu_torch/csrc/schur.cu", "dialog_tpu/kernels/schur.py:293"),
@@ -160,7 +193,9 @@ def device_ms(fn, own: tuple, reps: int = 20, warm: int = 3) -> dict:
         if not e.name.startswith(("Memcpy", "Memset")):
             shortest = min(shortest, ms)
     if own and not any(seen.values()):
-        fail(f"the profiler saw no launch of {own} in {reps} calls: no device time to report")
+        n_dev = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        fail(f"the profiler saw no launch of {own} in {reps} calls ({n_dev} device records in all): "
+             f"no device time to report")
     stages = {k: sum(v) / len(v) * max(1, round(len(v) / reps)) for k, v in seen.items() if v}
     return {"device_ms": sum(stages.values()), "stages_ms": stages, "other_device_ms": other,
             "shortest_launch_ms": shortest}
@@ -236,6 +271,38 @@ def check_fast(paths, dev) -> float:
     many = [rand(30 + 3 * i, 97 - 2 * i) for i in range(MAX_LEVELS)]
     hold(f"fast_nms_rank_levels {MAX_LEVELS} levels", fast_nms_rank_levels(many, 4.0, 15.0, 6, pad_to=8),
          fast_nms_rank_levels_plain(many, 4.0, 15.0, 6, pad_to=8))
+    return err
+
+
+def check_fast_batch(batches, dev) -> float:
+    """Kernel A over a batch of images in one launch against its plain
+    version, bit for bit: each real batch of ``batches`` ((name, images
+    [B, H, W], config) triples: the pyramid of one batch the batched frontend
+    saw), into cell-aligned outputs and plain ones, and image by image
+    against the one-image launch; then stacks of odd random sizes."""
+    from dialog_tpu_torch import frontend as fe
+    from dialog_tpu_torch.kernels.fast import (fast_nms_rank_levels, fast_nms_rank_levels_batch,
+                                               fast_nms_rank_levels_batch_plain)
+
+    err = 0.0
+    for pname, images, cfg in batches:
+        th = (float(cfg.min_th_fast), float(cfg.ini_th_fast), fe.BORDER)
+        pyr = fe.build_pyramid(torch.from_numpy(images).to(dev), cfg)
+        for pad in (fe.CELL, 1):
+            got = fast_nms_rank_levels_batch(pyr, *th, pad_to=pad)
+            err = max(err, hold_equal(f"kernel A fast_nms_rank_levels_batch {pname} {tuple(images.shape)}, "
+                                      f"{len(pyr)} levels, pad_to={pad}", got,
+                                      fast_nms_rank_levels_batch_plain(pyr, *th, pad_to=pad)))
+        single = [fast_nms_rank_levels([p[b] for p in pyr], *th, pad_to=1) for b in range(images.shape[0])]
+        hold_equal(f"kernel A fast_nms_rank_levels_batch {pname} against {images.shape[0]} one-image launches",
+                   got, [torch.stack([s[l] for s in single]) for l in range(len(pyr))])
+    rng = np.random.default_rng(2)
+    odd = [torch.from_numpy(rng.uniform(0, 255, (3, h, w)).astype(np.float32)).to(dev)
+           for h, w in [(61, 63), (62, 14), (15, 125), (1, 1), (7, 300), (129, 65), (40, 39)]]
+    for th, pad in [((7.0, 20.0, 19), 1), ((2.0, 9.0, 4), 16), ((5.0, 12.0, 1), 5)]:
+        err = max(err, hold_equal(f"kernel A fast_nms_rank_levels_batch 3 x {len(odd)} odd sizes {th} pad_to={pad}",
+                                  fast_nms_rank_levels_batch(odd, *th, pad_to=pad),
+                                  fast_nms_rank_levels_batch_plain(odd, *th, pad_to=pad)))
     return err
 
 
@@ -358,6 +425,18 @@ def run_path(name, dev):
     return scene, frames, eng, (len(frames) - FPS_FIRST) / wall, launches
 
 
+def path_ate(eng, scene, with_scale: bool) -> float:
+    """ATE (RMSE, metres) of the engine's OK frames against the scene's ground
+    truth: similarity-aligned with ``with_scale``, else rigidly (metric)."""
+    from dialog_tpu_torch.eval.ate import ate_rmse
+    from dialog_tpu_torch.system import OK
+
+    recs = [r for r in eng.trajectory if r.state == OK]
+    est = np.stack([-R.T @ t for (R, t), r in zip(eng.final_poses(), eng.trajectory) if r.state == OK])
+    gt = np.stack([-scene.R[r.frame_id].T @ scene.t[r.frame_id] for r in recs])
+    return ate_rmse(est, gt, with_scale=with_scale)
+
+
 def check_path(name, eng, scene, launches, *, with_scale: bool, ate_gate: float, min_kfs: int,
                min_launches: dict, max_launches: dict) -> dict:
     """The path's gates: state OK at the end, OK share > 0.95 after the
@@ -366,7 +445,6 @@ def check_path(name, eng, scene, launches, *, with_scale: bool, ate_gate: float,
     least ``min_launches[k]`` launches of each kernel k, and at most
     ``max_launches[k]`` (kernel A: one launch per image, so a return to one
     launch per pyramid level shows)."""
-    from dialog_tpu_torch.eval.ate import ate_rmse
     from dialog_tpu_torch.system import OK
 
     states = [r.state for r in eng.trajectory]
@@ -374,10 +452,7 @@ def check_path(name, eng, scene, launches, *, with_scale: bool, ate_gate: float,
         fail(f"{name}: the engine never initialized")
     first_ok = states.index(OK)
     ok_share = float(np.mean([s == OK for s in states[first_ok:]]))
-    recs = [r for r in eng.trajectory if r.state == OK]
-    est = np.stack([-R.T @ t for (R, t), r in zip(eng.final_poses(), eng.trajectory) if r.state == OK])
-    gt = np.stack([-scene.R[r.frame_id].T @ scene.t[r.frame_id] for r in recs])
-    ate = ate_rmse(est, gt, with_scale=with_scale)
+    ate = path_ate(eng, scene, with_scale)
     n_lms = int(eng.m.lms.valid.sum())
     out = dict(state=eng.state, kf_count=eng.kf_count, n_landmarks=n_lms, first_ok=first_ok,
                ok_share=ok_share, ate_m=ate, ate_scale_aligned=with_scale, launches=launches)
@@ -396,6 +471,268 @@ def check_path(name, eng, scene, launches, *, with_scale: bool, ate_gate: float,
     for k, n in max_launches.items():
         if launches[k] > n:
             fail(f"{name}: kernel {k} launched {launches[k]} > {n} times")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the batched and pipelined paths
+# ---------------------------------------------------------------------------
+
+
+def _counted(eng, method: str, counts: dict, key: str, hit=lambda out: True):
+    """Wrap ``eng.<method>`` (on the instance) so that ``counts[key]`` counts
+    its calls whose result satisfies ``hit``."""
+    inner = getattr(eng, method)
+
+    def wrapper(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        counts[key] += bool(hit(out))
+        return out
+
+    setattr(eng, method, wrapper)
+
+
+def run_batch_path(name, dev):
+    """The batched path ``name`` as bench.py drives its warm-up: the first
+    frames one by one through the engine's image entry, then batches of BATCH
+    through the batched frontend and ``Engine.track_batch`` (mono: at
+    ``kf_interval`` 10, with the first half of the batch that starts at frame
+    48 blanked, which sends the run LOST mid-batch), ``flush`` at the end.
+    Launch counts are reset just before and read just after. A per-frame twin
+    (a fresh engine, the image entry over the same frames, no blanking) gives
+    the frames/s to set beside.
+
+    Returns a dict: scene, frames, engine, twin, launches, counts (batches,
+    pulls, relocalization calls and successes), frames/s of both.
+    """
+    from dialog_tpu_torch.kernels import common
+    from dialog_tpu_torch.system import Engine
+
+    workload, n_frames, n_single, occlude_at, _ = BATCH_PATHS[name]
+    make_cfg, make_frames, method, fps_in = WORKLOADS[workload]
+    cfg = make_cfg()
+    scene, frames = make_frames(cfg, n_frames + PROFILE_FRAMES)
+
+    def engine():
+        eng = Engine(cfg, device=dev)
+        if workload == "mono":
+            eng.kf_interval = KF_INTERVAL
+        return eng
+
+    eng = engine()
+    counts = {"batches": 0, "pulls": 0, "reloc_calls": 0, "reloc_recovered": 0, "vocab_at_occlusion": False}
+    _counted(eng, "_try_relocalize", counts, "reloc_calls")
+    _counted(eng, "_try_relocalize", counts, "reloc_recovered", hit=lambda rec: rec is not None)
+    _counted(eng, "_start_pull", counts, "pulls")
+    common.reset_launch_counts()
+    track_frames(eng, method, frames, 0, n_single, fps_in)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_single, n_frames - BATCH + 1, BATCH):
+        if i == occlude_at:
+            counts["vocab_at_occlusion"] = eng._vocab is not None and eng.kf_count >= cfg.vocab_min_kfs
+        batch = extract_batch(cfg, frames, i, dev, blank=BATCH // 2 if i == occlude_at else 0)
+        out = eng.track_batch(batch, [float(i + j) / fps_in for j in range(BATCH)])
+        counts["batches"] += 1
+        if out:
+            say(f"{name} batch at frame {i}: resolved frames {out[0].frame_id}-{out[-1].frame_id} "
+                f"{[r.state for r in out].count('OK')}/{len(out)} OK, tracked={out[-1].n_tracked} kfs={eng.kf_count}")
+    eng.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(common.launches)
+    counts = dict(counts)     # as the path left them: the profiled window behind it goes on counting
+
+    twin = engine()
+    track_frames(twin, method, frames, 0, n_single, fps_in)
+    twin_wall = track_frames(twin, method, frames, n_single, n_frames, fps_in)
+    return dict(scene=scene, frames=frames, eng=eng, twin=twin, launches=launches, counts=counts,
+                fps=(n_frames - n_single) / wall, twin_fps=(n_frames - n_single) / twin_wall)
+
+
+def check_batch_path(name, run, *, with_scale: bool, ate_gate: float) -> dict:
+    """The batched path's gates: a record for every frame, in frame order,
+    after ``flush``; state OK at the end; OK share above BATCH_OK_SHARE after
+    the first OK frame, the blanked frames left out; a finite ATE below
+    ``ate_gate``; kernel A launched exactly once per batched frontend call
+    and once per image fed one by one; ``hamming_mutual`` at least once per
+    tracked frame; kernel C at least once; one pull per batch queued; on the
+    blanked frames LOST records and a relocalization attempt each; where the
+    path is long enough for one (``BATCH_PATHS``), a codebook by the blanked
+    batch and at least one successful relocalization."""
+    from dialog_tpu_torch.system import LOST, OK
+
+    workload, n_frames, n_single, occlude_at, needs_reloc = BATCH_PATHS[name]
+    eng, launches, counts = run["eng"], run["launches"], run["counts"]
+    stereo = workload == "stereo"
+    if [r.frame_id for r in eng.trajectory] != list(range(n_frames)):
+        fail(f"{name}: {len(eng.trajectory)} records for {n_frames} frames, or out of frame order")
+    if eng._pending_b or eng._pending:
+        fail(f"{name}: work left in flight after flush")
+    states = [r.state for r in eng.trajectory]
+    if OK not in states:
+        fail(f"{name}: the engine never initialized")
+    first_ok = states.index(OK)
+    blanked = set(range(occlude_at, occlude_at + BATCH // 2))
+    ok_share = float(np.mean([s == OK for i, s in enumerate(states) if i >= first_ok and i not in blanked]))
+    ate = path_ate(eng, run["scene"], with_scale)
+    twin_ate = path_ate(run["twin"], run["scene"], with_scale)
+    out = dict(state=eng.state, kf_count=eng.kf_count, n_landmarks=int(eng.m.lms.valid.sum()), first_ok=first_ok,
+               ok_share=ok_share, lost_frames=[i for i, s in enumerate(states) if s == LOST], ate_m=ate,
+               ate_scale_aligned=with_scale, launches=launches, **counts,
+               per_frame_twin=dict(state=run["twin"].state, kf_count=run["twin"].kf_count, ate_m=twin_ate))
+    say(f"{name} path: " + json.dumps(out))
+    if eng.state != OK:
+        fail(f"{name}: state at the end is {eng.state}")
+    if not ok_share > BATCH_OK_SHARE:
+        fail(f"{name}: OK share {ok_share} <= {BATCH_OK_SHARE} outside the blanked frames")
+    if not (np.isfinite(ate) and ate < ate_gate):
+        fail(f"{name}: ATE {ate} m not below {ate_gate} m")
+    want = {"fast_nms_rank_batch": counts["batches"], "fast_nms_rank": n_single * (2 if stereo else 1)}
+    for k, n in want.items():
+        if launches[k] != n:
+            fail(f"{name}: kernel A as {k} launched {launches[k]} times, not {n}: one per batched frontend call "
+                 f"({counts['batches']}), one per image fed one by one")
+    n_tracked = sum(1 for r in eng.trajectory[first_ok + 1:] if r.state == OK)
+    if launches["hamming_mutual"] < n_tracked:
+        fail(f"{name}: hamming_mutual launched {launches['hamming_mutual']} times for {n_tracked} tracked frames")
+    if launches["schur_reduce_stereo" if stereo else "schur_reduce"] < 1:
+        fail(f"{name}: kernel C was not launched")
+    if counts["pulls"] > counts["batches"] or counts["pulls"] < 1:
+        fail(f"{name}: {counts['pulls']} host pulls for {counts['batches']} batches")
+    if not blanked <= set(out["lost_frames"]):
+        fail(f"{name}: the blanked frames {sorted(blanked)} are not all LOST: {out['lost_frames']}")
+    if counts["reloc_calls"] < len(blanked):
+        fail(f"{name}: {counts['reloc_calls']} relocalization attempts for {len(blanked)} blanked frames")
+    if needs_reloc:
+        if not counts["vocab_at_occlusion"]:
+            fail(f"{name}: no codebook yet at the blanked batch (frame {occlude_at})")
+        if counts["reloc_recovered"] < 1:
+            fail(f"{name}: no relocalization succeeded in {counts['reloc_calls']} attempts")
+    return out
+
+
+def profile_batch_path(name, run, smi) -> dict:
+    """Launches, stream syncs and ``.item()`` reads per frame from one
+    ``torch.profiler`` window of PROFILE_FRAMES frames behind the path: the
+    batched engine through its batched entries, its per-frame twin through
+    the image entry, on the same frames. Printed, not gated."""
+    workload, n_frames = BATCH_PATHS[name][:2]
+    _, _, method, fps_in = WORKLOADS[workload]
+    last = n_frames + PROFILE_FRAMES
+    runs = {
+        "batched": profiled(lambda: track_batches(run["eng"], run["frames"], n_frames, last, fps_in)),
+        "per_frame": profiled(lambda: track_frames(run["twin"], method, run["frames"], n_frames, last, fps_in)),
+    }
+    out = {}
+    for k, p in runs.items():
+        if p["device_kernels"] < 1:
+            fail(f"{name}: the profiler recorded no device kernel in the {k} window")
+        rows = {r: p["syncs"].get(r, 0) / PROFILE_FRAMES for r in
+                ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchronize", "aten::item")}
+        out[k] = dict(device_kernels_per_frame=p["device_kernels"] / PROFILE_FRAMES, **rows, wall_s=p["wall_s"],
+                      idle_share=1.0 - p["device_busy_s"] / p["wall_s"])
+    c = run["counts"]
+    say(f"{name}: {run['fps']:.3f} frames/s batched (B={BATCH}, its blanked batch and relocalization included) "
+        f"beside {run['twin_fps']:.3f} frames/s per frame on the same frames; host pulls per batch "
+        f"{c['pulls'] / max(c['batches'], 1):.3f}; per frame under the profiler ({PROFILE_FRAMES} frames): "
+        + json.dumps(out) + f" on {smi}")
+    return out
+
+
+def async_probe(dev, smi) -> dict:
+    """A stretch of the mono workload through the pipelined per-frame entry:
+    8 frames one by one, ASYNC_FRAMES through ``extract_features`` +
+    ``track_features_async``, ``flush``. Gates: a record per frame, in order;
+    never more than ``pipeline_depth`` frames in flight; state OK at the end
+    and on every frame after the first OK one."""
+    from dialog_tpu_torch.frontend import extract_features
+    from dialog_tpu_torch.system import OK, Engine
+
+    make_cfg, make_frames, method, fps_in = WORKLOADS["mono"]
+    cfg = make_cfg()
+    _, frames = make_frames(cfg, 8 + ASYNC_FRAMES)
+    eng = Engine(cfg, device=dev)
+    eng.kf_interval = KF_INTERVAL
+    track_frames(eng, method, frames, 0, 8, fps_in)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    deepest = 0
+    for i in range(8, len(frames)):
+        eng.track_features_async(extract_features(torch.from_numpy(frames[i]).to(dev), cfg), float(i) / fps_in)
+        deepest = max(deepest, len(eng._pending))
+    eng.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    states = [r.state for r in eng.trajectory]
+    out = dict(frames=len(states), state=eng.state, kf_count=eng.kf_count, deepest_in_flight=deepest,
+               frames_per_s=ASYNC_FRAMES / wall)
+    say("async probe: " + json.dumps(out) + f" on {smi}")
+    if [r.frame_id for r in eng.trajectory] != list(range(len(frames))):
+        fail("async probe: not one record per frame, in order")
+    if eng.state != OK or OK not in states or any(s != OK for s in states[states.index(OK):]):
+        fail(f"async probe: states {states}")
+    if deepest > eng.pipeline_depth or eng._pending:
+        fail(f"async probe: {deepest} frames in flight (depth {eng.pipeline_depth}), {len(eng._pending)} left")
+    return out
+
+
+def reloc_probe(run, dev, smi) -> dict:
+    """Relocalization on a settled engine: the last frame the batched mono
+    engine tracked, the engine set LOST, ``_try_relocalize`` of that frame.
+    The recovered pose must lie within RELOC_POS_TOL map units and
+    RELOC_ROT_TOL_DEG degrees of the pose the frame was tracked at. Also
+    times, on this engine's map: one vocabulary training with its idf and
+    BoW rows (``_ensure_vocab`` from no codebook), ``train_vocab`` alone, and
+    one ``solve_pnp_ransac`` on the probe's own problem."""
+    from dialog_tpu_torch import pnp, tracking, vocab
+    from dialog_tpu_torch.containers import FrameArrays
+    from dialog_tpu_torch.system import LOST
+
+    eng, frames = run["eng"], run["frames"]
+    cfg = eng.cfg
+    fid = len(frames) - 1
+    rec0 = eng.trajectory[fid]
+    if rec0.frame_id != fid or rec0.state != "OK":
+        fail(f"relocalization probe: frame {fid} was not tracked ({rec0.state})")
+    R0, t0 = eng.final_poses()[fid]
+    frame = FrameArrays(*[x[BATCH - 1] for x in extract_batch(cfg, frames, fid - BATCH + 1, dev)])
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    eng.state, eng._vel = LOST, None
+    rec, reloc_s = timed(lambda: eng._try_relocalize(frame, rec0.timestamp))
+    if rec is None:
+        fail("relocalization probe: _try_relocalize did not recover a tracked frame")
+    pos = float(np.abs(-rec.R.T @ rec.t - (-R0.T @ t0)).max())
+    rot = float(np.degrees(np.arccos(np.clip((np.trace(rec.R @ R0.T) - 1.0) / 2.0, -1.0, 1.0))))
+    # the probe's own PnP problem, and the map's vocabulary from nothing
+    lm_ids, _ = tracking.match_reference_kf(eng.m, rec.ref_kf, frame, cfg)
+    X, uv, _, ok = tracking.gather_track_problem(eng.m, frame, lm_ids, cfg)
+    pick = pnp.draw_pnp_sets(ok, cfg.pnp_ransac_iters, eng._gen)
+    solve = lambda: pnp.solve_pnp_ransac(X, uv, ok, cfg.fx, cfg.fy, cfg.cx, cfg.cy, pick)  # noqa: E731
+    solve()
+    res, pnp_s = timed(solve)
+    kfs = eng.m.kfs
+    desc = kfs.desc.reshape(-1, 8)
+    valid = (kfs.feat_valid & kfs.valid[:, None]).reshape(-1)
+    _, train_s = timed(lambda: vocab.train_vocab(desc, valid, eng._vocab.words, n_words=cfg.vocab_words, iters=4))
+    eng._vocab = None
+    _, vocab_s = timed(eng._ensure_vocab)
+    out = dict(frame=fid, candidate_kf=rec.ref_kf, n_inliers=rec.n_tracked, pos_err_map_units=pos, rot_err_deg=rot,
+               relocalization_s=reloc_s, solve_pnp_ransac_s=pnp_s, pnp_points=int(ok.sum()),
+               pnp_inliers=int(res.n_inliers), pnp_iters=cfg.pnp_ransac_iters, train_vocab_s=train_s,
+               ensure_vocab_s=vocab_s, vocab_words=cfg.vocab_words, vocab_descriptor_slots=int(desc.shape[0]),
+               vocab_valid_descriptors=int(valid.sum()))
+    say("relocalization probe: " + json.dumps(out) + f" on {smi}")
+    if not (pos < RELOC_POS_TOL and rot < RELOC_ROT_TOL_DEG):
+        fail(f"relocalization probe: recovered pose {pos} map units, {rot} degrees from the tracked one "
+             f"(bounds {RELOC_POS_TOL}, {RELOC_ROT_TOL_DEG})")
     return out
 
 
@@ -674,7 +1011,7 @@ def schur_bound(args, kw, out) -> dict:
     return dict(bound(nbytes(*ins, *out), ops), live_observations=int(ok.sum()), optimized_observations=int(opt.sum()))
 
 
-def kernel_times(images, cfg, prob, stereo_cfg, stereo_prob, dev) -> dict:
+def kernel_times(images, cfg, prob, stereo_cfg, stereo_prob, dev, mono_stack, stereo_stack) -> dict:
     """For each kernel at its path's shapes: ``ms`` the device's own time per
     call (``device_ms``), ``wrapper_loop_ms`` and ``plain_ms`` the pace of
     back-to-back calls of the wrapper and of the plain version, the bound,
@@ -686,9 +1023,15 @@ def kernel_times(images, cfg, prob, stereo_cfg, stereo_prob, dev) -> dict:
     camera index once per solve: ``cam_index_device_ms`` is the device time
     of building it (PyTorch's sort and search kernels), ``cam_index_ms`` the
     pace of back-to-back builds, and ``solve_device_ms`` the device cost of
-    one ``solve_ba`` of the path, the index plus ``solve_iters`` calls."""
+    one ``solve_ba`` of the path, the index plus ``solve_iters`` calls.
+    Kernel A over a batch is timed on the pyramids of ``mono_stack`` (BATCH
+    640x480 images, the entry's own readings) and of ``stereo_stack``
+    (2 x BATCH 1241x376 images, under ``stereo_batch``), each beside the
+    same images through one-image launches (``one_image_launches``: the
+    device time and the loop's pace of B launches)."""
     from dialog_tpu_torch import frontend as fe
-    from dialog_tpu_torch.kernels.fast import (fast_nms_rank, fast_nms_rank_levels, fast_nms_rank_levels_plain,
+    from dialog_tpu_torch.kernels.fast import (fast_nms_rank, fast_nms_rank_levels, fast_nms_rank_levels_batch,
+                                               fast_nms_rank_levels_batch_plain, fast_nms_rank_levels_plain,
                                                fast_nms_rank_plain)
     from dialog_tpu_torch.kernels.hamming import (hamming_best2, hamming_best2_filled, mutual_match_fused,
                                                   mutual_match_plain)
@@ -728,6 +1071,22 @@ def kernel_times(images, cfg, prob, stereo_cfg, stereo_prob, dev) -> dict:
                                 lambda: mutual_match_plain(*h_args, **m_kw),
                                 hamming_bound(x, mutual_match_fused(*h_args, **m_kw), 1), reps=50),
     }
+
+    def batch_entry(stack, c):
+        pyr_b = fe.build_pyramid(torch.from_numpy(stack).to(dev), c)
+        th = (float(c.min_th_fast), float(c.ini_th_fast), fe.BORDER)
+        one_by_one = lambda: [fast_nms_rank_levels([p[b] for p in pyr_b], *th, **a_kw)  # noqa: E731
+                              for b in range(stack.shape[0])]
+        singles = device_ms(one_by_one, DEVICE_KERNELS["fast_nms_rank"], reps=20)
+        return entry("fast_nms_rank_batch", lambda: fast_nms_rank_levels_batch(pyr_b, *th, **a_kw),
+                     lambda: fast_nms_rank_levels_batch_plain(pyr_b, *th, **a_kw),
+                     fast_bound(pyr_b, fast_nms_rank_levels_batch(pyr_b, *th, **a_kw)), reps=20,
+                     images=int(stack.shape[0]), image_shape=list(stack.shape[1:]), levels=len(pyr_b),
+                     one_image_launches=dict(device_ms=singles["device_ms"],
+                                             wrapper_loop_ms=time_ms(one_by_one, reps=20)))
+
+    times["fast_nms_rank_batch"] = batch_entry(mono_stack, cfg)
+    times["fast_nms_rank_batch"]["stereo_batch"] = batch_entry(stereo_stack, stereo_cfg)
     # kernel C as solve_ba calls it: the camera index built once, outside the call
     for name, p, c in [("schur_reduce", prob, cfg), ("schur_reduce_stereo", stereo_prob, stereo_cfg)]:
         args, kw = c_args(p, c), _stereo_kw(p, c)
@@ -791,22 +1150,40 @@ def main() -> int:
                min_launches={"fast_nms_rank": n_rg, "hamming_mutual": 1, "schur_reduce_stereo": 1},
                max_launches={"fast_nms_rank": n_rg})
 
+    # the batched paths: kernel A once per batch of images, one host pull per batch
+    mb = run_batch_path("mono_batch", dev)
+    check_batch_path("mono_batch", mb, with_scale=True, ate_gate=ATE_GATE)
+    sb = run_batch_path("stereo_batch", dev)
+    check_batch_path("stereo_batch", sb, with_scale=False, ate_gate=STEREO_ATE_GATE)
+    async_probe(dev, smi)
+
     # kernels A and B against their plain versions (after the paths: these launches do not count)
     err_a = check_fast([("mono", images[0], cfg), ("stereo", simages[0][0], seng.cfg)], dev)
+    mono_stack = np.stack(mb["frames"][8 : 8 + BATCH])
+    stereo_stack = np.stack([x[0] for x in sb["frames"][4 : 4 + BATCH]] + [x[1] for x in sb["frames"][4 : 4 + BATCH]])
+    err_ab = check_fast_batch([("mono_batch", mono_stack, cfg), ("stereo_batch", stereo_stack, seng.cfg)], dev)
     err_b, err_m = check_hamming(dev)
 
-    times = kernel_times(images, cfg, prob, seng.cfg, sprob, dev)
-    errs = {"fast_nms_rank": err_a, "hamming_best2": err_b, "hamming_mutual": err_m, "schur_reduce": err_c,
-            "schur_reduce_stereo": err_cs}
+    times = kernel_times(images, cfg, prob, seng.cfg, sprob, dev, mono_stack, stereo_stack)
+
+    # the batched paths against their per-frame twins under the profiler, and relocalization on the mono_batch
+    # engine. These windows (some 100,000 kernels each) come after the kernels' own short profiler
+    # sessions: in one run the first short session behind four of them came back without a device record
+    profile_batch_path("mono_batch", mb, smi)
+    reloc_probe(mb, dev, smi)
+    profile_batch_path("stereo_batch", sb, smi)
+    errs = {"fast_nms_rank": err_a, "fast_nms_rank_batch": err_ab, "hamming_best2": err_b, "hamming_mutual": err_m,
+            "schur_reduce": err_c, "schur_reduce_stereo": err_cs}
     rels = {"schur_reduce": rel_c, "schur_reduce_stereo": rel_cs}
-    by_path = {"mono": launches, "stereo": slaunches, "rgbd": rlaunches}
+    by_path = {"mono": launches, "stereo": slaunches, "rgbd": rlaunches, "mono_batch": mb["launches"],
+               "stereo_batch": sb["launches"]}
     # every launch is above these bounds: the shortest single kernel of the timing runs is the practical floor
     floor_ms = min(t["shortest_launch_ms"] for t in times.values())
     say(f"shortest single kernel launch seen while timing (the practical floor of any bound below it): "
         f"{floor_ms} ms on {smi}")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        path = "stereo" if name == "schur_reduce_stereo" else "mono"
+        path = {"schur_reduce_stereo": "stereo", "fast_nms_rank_batch": "mono_batch"}.get(name, "mono")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": by_path[path][name], "launches_path": path,

@@ -1,5 +1,5 @@
 // Kernel A: FAST-9 score + strict 3x3 NMS + border mask + two-tier rank, for
-// every pyramid level of an image in one launch.
+// every pyramid level of an image, or of a whole batch of images, in one launch.
 //
 // Replaces the Pallas kernel dialog_tpu/kernels/fast.py::fast_nms_rank
 // (body _kernel). Per pixel of a pyramid level:
@@ -21,6 +21,13 @@
 // fills a table of levels that is passed by value as a kernel parameter (no
 // copy to the device, no sync) and a block finds its level by scanning the
 // table's tile ranges.
+// A batch of B images of one shape (the batched frontend: 8 mono images, or
+// 8 stereo pairs stacked to 16) keeps that table and adds a batch axis: the
+// levels arrive as contiguous [B, H_l, W_l] stacks, the grid's y dimension
+// is the image, and a block offsets its level's pointers by the image index
+// times the level's size. The table stays one entry per level (8, not 64 or
+// 128), so it still travels by value and the scan for a block's level stays
+// short; a table in device memory would cost a copy to the device per call.
 //
 // A block of 256 threads owns a 64 x 24 tile of scores, six per thread (the
 // thread's column is tid & 63, so a warp reads 32 neighbouring floats of a
@@ -65,8 +72,8 @@ constexpr int OH = SH - 2;
 constexpr int MAX_LEVELS = 32;
 
 struct Level {
-  const float* img;   // f32 [H, W]
-  float* out;         // f32 [Ho, Wo], Ho >= H, Wo >= W: rank, zeros beyond the image
+  const float* img;   // f32 [B, H, W]
+  float* out;         // f32 [B, Ho, Wo], Ho >= H, Wo >= W: rank, zeros beyond the image
   int H, W, Ho, Wo;
   int tiles_x;        // output tiles per row of tiles
   int tile_end;       // one past this level's last block
@@ -128,6 +135,9 @@ fast_levels_kernel(const __grid_constant__ LevelTable tab, float min_th, float t
   const Level& L = tab.lv[l];
   const int t = blockIdx.x - (l ? tab.lv[l - 1].tile_end : 0);
   const int H = L.H, W = L.W;
+  // this block's image of the batch (blockIdx.y): the levels are [B, H, W] stacks
+  const float* __restrict__ img = L.img + (size_t)blockIdx.y * H * W;
+  float* __restrict__ out = L.out + (size_t)blockIdx.y * L.Ho * L.Wo;
   const int x0 = (t % L.tiles_x) * OW;   // output tile origin
   const int y0 = (t / L.tiles_x) * OH;
   const int tid = threadIdx.x;
@@ -142,7 +152,7 @@ fast_levels_kernel(const __grid_constant__ LevelTable tab, float min_th, float t
   if (any_needed) {
     const int warp = tid >> 5, lane = tid & 31;
     for (int r = warp; r < IH; r += NT / 32) {
-      const float* row = L.img + (size_t)min(max(y0 - 1 - RAD + r, 0), H - 1) * W;
+      const float* row = img + (size_t)min(max(y0 - 1 - RAD + r, 0), H - 1) * W;
       for (int c = lane; c < IW; c += 32) tile[r][c] = row[min(max(x0 - 1 - RAD + c, 0), W - 1)];
     }
     __syncthreads();
@@ -203,17 +213,19 @@ fast_levels_kernel(const __grid_constant__ LevelTable tab, float min_th, float t
       const float sc = (s >= mx) ? s : 0.0f;
       rank = (sc > min_th) ? sc + ((sc > th_fast) ? 1000.0f : 0.0f) : 0.0f;
     }
-    L.out[(size_t)y * L.Wo + x] = rank;
+    out[(size_t)y * L.Wo + x] = rank;
   }
 }
 
 }  // namespace
 
-// imgs, outs: the n levels' device pointers (host arrays); dims: n x {H, W, Ho, Wo}.
-// A level's [Ho, Wo] output takes ceil(Wo / OW) x ceil(Ho / OH) blocks, row-major.
-extern "C" int fast_levels_launch(const void* const* imgs, void* const* outs, const int* dims, int n,
-                                  float min_th, float th_fast, int border, void* stream) {
-  if (n <= 0 || n > MAX_LEVELS) return static_cast<int>(cudaErrorInvalidValue);
+// imgs, outs: the n levels' device pointers (host arrays), each a contiguous stack of
+// `batch` images [batch, H, W] and rank maps [batch, Ho, Wo]; dims: n x {H, W, Ho, Wo}.
+// A level's [Ho, Wo] output takes ceil(Wo / OW) x ceil(Ho / OH) blocks, row-major, for
+// each image of the batch (the grid's y dimension).
+extern "C" int fast_levels_batch_launch(const void* const* imgs, void* const* outs, const int* dims, int n,
+                                        int batch, float min_th, float th_fast, int border, void* stream) {
+  if (n <= 0 || n > MAX_LEVELS || batch <= 0 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
   LevelTable tab{};
   tab.n = n;
   int tile_end = 0;
@@ -230,6 +242,13 @@ extern "C" int fast_levels_launch(const void* const* imgs, void* const* outs, co
     tile_end += L.tiles_x * ((L.Ho + OH - 1) / OH);
     L.tile_end = tile_end;
   }
-  fast_levels_kernel<<<tile_end, NT, 0, static_cast<cudaStream_t>(stream)>>>(tab, min_th, th_fast, border);
+  fast_levels_kernel<<<dim3(tile_end, batch), NT, 0, static_cast<cudaStream_t>(stream)>>>(tab, min_th, th_fast,
+                                                                                         border);
   return static_cast<int>(cudaGetLastError());
+}
+
+// one image: the batch of one
+extern "C" int fast_levels_launch(const void* const* imgs, void* const* outs, const int* dims, int n,
+                                  float min_th, float th_fast, int border, void* stream) {
+  return fast_levels_batch_launch(imgs, outs, dims, n, 1, min_th, th_fast, border, stream);
 }

@@ -26,7 +26,7 @@ import torch
 from . import ops
 from .config import EngineConfig
 from .containers import FrameArrays
-from .kernels.fast import fast_nms_rank_levels
+from .kernels.fast import fast_nms_rank_levels, fast_nms_rank_levels_batch
 
 PATCH_R = 15          # orientation / descriptor patch radius
 PATCH = 2 * PATCH_R + 1
@@ -109,15 +109,29 @@ def _operator(kind: str, args: tuple, device: str) -> torch.Tensor:
     return torch.from_numpy(mat).to(device)
 
 
+def _apply_separable(my: torch.Tensor, img: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
+    """my @ img @ mx^T for f32[H, W], and image by image for a stack
+    f32[B, H, W]. A stack's two products stay per image because a float
+    product's rounding follows the shapes the library is given: on an H100
+    neither a broadcast, a batched nor a folded product of the stack gave
+    every level the bits of the one-image product, which is what an
+    image's features are defined by. Everything downstream of the operators
+    takes the stack whole."""
+    if img.dim() == 2:
+        return my @ img @ mx.T
+    return torch.stack([my @ im @ mx.T for im in img])
+
+
 def resize_bilinear(img: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
-    """Separable triangle-filter resize: ry @ img @ rx^T."""
-    ry = _operator("resize", (img.shape[0], shape[0]), str(img.device))
-    rx = _operator("resize", (img.shape[1], shape[1]), str(img.device))
-    return ry @ img @ rx.T
+    """Separable triangle-filter resize: ry @ img @ rx^T, of f32[H, W] or of
+    every image of f32[B, H, W]."""
+    ry = _operator("resize", (img.shape[-2], shape[0]), str(img.device))
+    rx = _operator("resize", (img.shape[-1], shape[1]), str(img.device))
+    return _apply_separable(ry, img, rx)
 
 
 def build_pyramid(img: torch.Tensor, cfg: EngineConfig) -> list[torch.Tensor]:
-    """f32[H, W] -> list of per-level images."""
+    """f32[H, W] (or a stack f32[B, H, W]) -> list of per-level images."""
     levels = [img]
     shapes = level_shapes(cfg)
     for l in range(1, cfg.n_levels):
@@ -126,10 +140,11 @@ def build_pyramid(img: torch.Tensor, cfg: EngineConfig) -> list[torch.Tensor]:
 
 
 def gaussian_blur(img: torch.Tensor, sigma: float = 2.0, radius: int = 3) -> torch.Tensor:
-    """Separable Gaussian blur (the reference blurs before descriptor sampling)."""
-    by = _operator("blur", (img.shape[0], sigma, radius), str(img.device))
-    bx = _operator("blur", (img.shape[1], sigma, radius), str(img.device))
-    return by @ img @ bx.T
+    """Separable Gaussian blur (the reference blurs before descriptor sampling)
+    of f32[H, W], or of every image of f32[B, H, W]."""
+    by = _operator("blur", (img.shape[-2], sigma, radius), str(img.device))
+    bx = _operator("blur", (img.shape[-1], sigma, radius), str(img.device))
+    return _apply_separable(by, img, bx)
 
 
 # ---------------------------------------------------------------------------
@@ -151,16 +166,18 @@ def detect_level(img_l: torch.Tensor, n_take: int, th_fast: float, min_th_fast: 
 
 def select_keypoints(padded: torch.Tensor, n_take: int, cell: int = CELL):
     """The n_take best of a level's per-cell best ranks. ``padded`` is the
-    level's rank map, zero-padded to whole cells (kernel A writes it so)."""
-    Hc, Wc = padded.shape[0] // cell, padded.shape[1] // cell
-    cells = padded.reshape(Hc, cell, Wc, cell).permute(0, 2, 1, 3).reshape(Hc * Wc, cell * cell)
+    level's rank map, zero-padded to whole cells (kernel A writes it so), or
+    a stack [B, Hp, Wp] of them: then every output has a leading B."""
+    lead = padded.shape[:-2]
+    Hc, Wc = padded.shape[-2] // cell, padded.shape[-1] // cell
+    cells = padded.reshape(lead + (Hc, cell, Wc, cell)).transpose(-3, -2).reshape(lead + (Hc * Wc, cell * cell))
     k = max(1, min(cell * cell, -(-2 * n_take // (Hc * Wc))))
     topv, topi = ops.top_k(cells, k)
     cidx = torch.arange(Hc * Wc, device=padded.device)[:, None]
-    py = (cidx // Wc) * cell + topi // cell
-    px = (cidx % Wc) * cell + topi % cell
-    gv, gi = ops.top_k(topv.reshape(-1), n_take)
-    uv = torch.stack([px.reshape(-1)[gi], py.reshape(-1)[gi]], dim=-1).to(torch.float32)
+    py = ((cidx // Wc) * cell + topi // cell).reshape(lead + (-1,))
+    px = ((cidx % Wc) * cell + topi % cell).reshape(lead + (-1,))
+    gv, gi = ops.top_k(topv.reshape(lead + (-1,)), n_take)
+    uv = torch.stack([torch.gather(px, -1, gi), torch.gather(py, -1, gi)], dim=-1).to(torch.float32)
     valid = gv > 0.0
     score = torch.where(gv > 1000.0, gv - 1000.0, gv)
     return uv, score, valid
@@ -172,14 +189,18 @@ def select_keypoints(padded: torch.Tensor, n_take: int, cell: int = CELL):
 
 
 def _gather_patches(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
-    """31x31 patches at integer keypoints, clamped inside the image: [N, 31, 31]."""
-    H, W = img.shape
-    y0 = torch.clamp(uv[:, 1].to(torch.int64) - PATCH_R, 0, H - PATCH)
-    x0 = torch.clamp(uv[:, 0].to(torch.int64) - PATCH_R, 0, W - PATCH)
+    """31x31 patches at integer keypoints, clamped inside the image:
+    [N, 31, 31] from f32[H, W] and uv [N, 2], [B, N, 31, 31] from stacks."""
+    H, W = img.shape[-2:]
+    y0 = torch.clamp(uv[..., 1].to(torch.int64) - PATCH_R, 0, H - PATCH)
+    x0 = torch.clamp(uv[..., 0].to(torch.int64) - PATCH_R, 0, W - PATCH)
     off = torch.arange(PATCH, device=img.device)
-    rows = (y0[:, None] + off)[:, :, None]
-    cols = (x0[:, None] + off)[:, None, :]
-    return img[rows, cols]
+    rows = (y0[..., None] + off)[..., :, None]
+    cols = (x0[..., None] + off)[..., None, :]
+    if img.dim() == 2:
+        return img[rows, cols]
+    b = torch.arange(img.shape[0], device=img.device)[:, None, None, None]
+    return img[b, rows, cols]
 
 
 def _gather_patches2(img_a: torch.Tensor, img_b: torch.Tensor, uv: torch.Tensor):
@@ -187,10 +208,14 @@ def _gather_patches2(img_a: torch.Tensor, img_b: torch.Tensor, uv: torch.Tensor)
     return _gather_patches(img_a, uv), _gather_patches(img_b, uv)
 
 
+@functools.lru_cache(maxsize=None)
+def _moment_tables(device: str):
+    return torch.from_numpy(_MOM_X).to(device), torch.from_numpy(_MOM_Y).to(device)
+
+
 def compute_orientation(patches: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid angle per patch (reference: IC_Angle)."""
-    mx = torch.from_numpy(_MOM_X).to(patches.device)
-    my = torch.from_numpy(_MOM_Y).to(patches.device)
+    mx, my = _moment_tables(str(patches.device))
     m10 = torch.einsum("nij,ij->n", patches, mx)
     m01 = torch.einsum("nij,ij->n", patches, my)
     return torch.atan2(m01, m10)
@@ -268,47 +293,81 @@ def extract_features(img: torch.Tensor, cfg: EngineConfig) -> FrameArrays:
     return _extract_one(img, cfg)
 
 
+def extract_features_batch(imgs: torch.Tensor, cfg: EngineConfig) -> FrameArrays:
+    """Batched frontend: f32[B, H, W] -> FrameArrays with a leading B on
+    every leaf; image b's features equal ``extract_features(imgs[b])``.
+
+    Kernel A runs once for all B x levels rank maps, and the per-cell
+    selection, the patch gathers and the descriptors once per level or once
+    in all over the B x N keypoints. The float matrix products (the resize
+    and blur operators, the orientation moments) stay one image at a time
+    (``_apply_separable``).
+    """
+    if imgs.dim() != 3 or tuple(imgs.shape[1:]) != (cfg.height, cfg.width):
+        raise ValueError(
+            f"image batch shape {tuple(imgs.shape)} does not match config ({cfg.height}, {cfg.width})"
+        )
+    return _extract(imgs, cfg)
+
+
 def _extract_one(img: torch.Tensor, cfg: EngineConfig) -> FrameArrays:
-    img = img.to(torch.float32)
+    return _extract(img, cfg)
+
+
+def _extract(img: torch.Tensor, cfg: EngineConfig) -> FrameArrays:
+    """The frontend on one image f32[H, W] or on a stack f32[B, H, W]."""
+    img = img.to(torch.float32).contiguous()
     dev = img.device
+    lead = img.shape[:-2]
     pyr = build_pyramid(img, cfg)
     counts = features_per_level(cfg)
     # kernel A: every level's rank map in one launch, each in its cell-aligned buffer
-    ranks = fast_nms_rank_levels(pyr, float(cfg.min_th_fast), float(cfg.ini_th_fast), BORDER, pad_to=CELL)
+    rank_levels = fast_nms_rank_levels_batch if lead else fast_nms_rank_levels
+    ranks = rank_levels(pyr, float(cfg.min_th_fast), float(cfg.ini_th_fast), BORDER, pad_to=CELL)
     all_uv, all_score, all_valid, all_oct, all_praw, all_pblur = [], [], [], [], [], []
     for l in range(cfg.n_levels):
         img_l = pyr[l]
         uv, score, valid = select_keypoints(ranks[l], counts[l])
         praw, pblur = _gather_patches2(img_l, gaussian_blur(img_l), uv)
-        scale = torch.tensor(cfg.scale_factor**l, dtype=torch.float32)
-        all_uv.append(uv * scale.to(dev))
+        all_uv.append(uv * ops.scalar(cfg.scale_factor**l, torch.float32, dev))
         all_score.append(score)
         all_valid.append(valid)
-        all_oct.append(torch.full((uv.shape[0],), l, dtype=torch.int32, device=dev))
+        all_oct.append(torch.full(score.shape, l, dtype=torch.int32, device=dev))
         all_praw.append(praw)
         all_pblur.append(pblur)
 
-    uv = torch.cat(all_uv)
-    score = torch.cat(all_score)
-    valid = torch.cat(all_valid)
-    octv = torch.cat(all_oct)
-    ang = compute_orientation(torch.cat(all_praw))
-    desc = compute_descriptors(torch.cat(all_pblur), ang)
+    uv = torch.cat(all_uv, dim=-2)
+    score = torch.cat(all_score, dim=-1)
+    valid = torch.cat(all_valid, dim=-1)
+    octv = torch.cat(all_oct, dim=-1)
+    n = score.shape[-1]
+    # orientation over all levels at once, image by image: its two sums over
+    # the patch are matrix products, whose rounding follows the number of
+    # rows, so a stack's moments would not be each image's own to the bit
+    praw = torch.cat(all_praw, dim=-3)
+    ang = torch.stack([compute_orientation(p) for p in praw]) if lead else compute_orientation(praw)
+    # descriptors over all keypoints (of all images) at once: gathers and compares
+    desc = compute_descriptors(torch.cat(all_pblur, dim=-3).reshape(-1, PATCH, PATCH), ang.reshape(-1))
+    desc = desc.reshape(lead + (n, 8))
 
     F = cfg.max_features
-    n = uv.shape[0]
     if n < F:
         pad = F - n
-        uv = torch.cat([uv, uv.new_zeros((pad, 2))])
-        score = torch.cat([score, score.new_zeros(pad)])
-        valid = torch.cat([valid, valid.new_zeros(pad)])
-        octv = torch.cat([octv, octv.new_zeros(pad)])
-        ang = torch.cat([ang, ang.new_zeros(pad)])
-        desc = torch.cat([desc, desc.new_zeros((pad, 8))])
+        uv = torch.cat([uv, uv.new_zeros(lead + (pad, 2))], dim=-2)
+        score = torch.cat([score, score.new_zeros(lead + (pad,))], dim=-1)
+        valid = torch.cat([valid, valid.new_zeros(lead + (pad,))], dim=-1)
+        octv = torch.cat([octv, octv.new_zeros(lead + (pad,))], dim=-1)
+        ang = torch.cat([ang, ang.new_zeros(lead + (pad,))], dim=-1)
+        desc = torch.cat([desc, desc.new_zeros(lead + (pad, 8))], dim=-2)
     elif n > F:
         _, keep = ops.top_k(torch.where(valid, score, -1.0), F)
-        uv, score, valid = uv[keep], score[keep], valid[keep]
-        octv, ang, desc = octv[keep], ang[keep], desc[keep]
+
+        def pick(x):
+            idx = keep.reshape(keep.shape + (1,) * (x.dim() - keep.dim())).expand(keep.shape + x.shape[keep.dim():])
+            return torch.gather(x, len(lead), idx)
+
+        uv, score, valid = pick(uv), pick(score), pick(valid)
+        octv, ang, desc = pick(octv), pick(ang), pick(desc)
 
     return FrameArrays(
         uv=uv,
@@ -318,6 +377,6 @@ def _extract_one(img: torch.Tensor, cfg: EngineConfig) -> FrameArrays:
         angle=ang,
         desc=desc,
         valid=valid,
-        u_right=-torch.ones((F,), dtype=torch.float32, device=dev),
-        depth=-torch.ones((F,), dtype=torch.float32, device=dev),
+        u_right=-torch.ones(lead + (F,), dtype=torch.float32, device=dev),
+        depth=-torch.ones(lead + (F,), dtype=torch.float32, device=dev),
     )

@@ -6,6 +6,8 @@ The reference's ``FrameArrays`` and ``MapState`` reach this module as what
 (and a local-BA ``BAProblem``) into the port's tensors on a given device, so
 both engines can compute from the same map; stereo fields (the keyframe
 store's ``u_right``/``depth``, a problem's ``obs_ur``) travel like any other;
+``vocab_from_numpy`` does the same for a ``Vocabulary`` (words, idf and the
+two-level tables), so both packages quantize with one codebook;
 ``map_to_numpy`` goes the other way, as nested dicts of numpy arrays keyed by
 the reference's field names. Descriptor words travel as the reference's
 ``uint32`` and live in the port as ``int32`` bit-casts.
@@ -20,6 +22,7 @@ import torch
 
 from .containers import FrameArrays, KeyframeStore, LandmarkStore, MapState
 from .optim.local_ba import BAProblem
+from .vocab import Vocabulary
 
 
 def numpy_to_tensor(a, dtype=None, device="cuda") -> torch.Tensor:
@@ -69,6 +72,13 @@ def problem_from_numpy(prob, device="cuda") -> BAProblem:
     an absent ``obs_ur`` (mono problem) or ``lm_opt`` stays None."""
     return BAProblem(**{f: None if _get(prob, f) is None else numpy_to_tensor(_get(prob, f), device=device)
                         for f in BAProblem._fields})
+
+
+def vocab_from_numpy(vocab, device="cuda") -> Vocabulary:
+    """Reference Vocabulary (numpy leaves) -> port Vocabulary on ``device``;
+    the two-level tables stay None on a flat codebook."""
+    return Vocabulary(**{f: None if _get(vocab, f) is None else numpy_to_tensor(_get(vocab, f), device=device)
+                         for f in Vocabulary._fields})
 
 
 def _tuple_to_numpy(t) -> dict:

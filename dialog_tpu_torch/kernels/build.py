@@ -38,6 +38,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: dict[str, dict[str, tuple]] = {
     "fast": {
         "fast_levels_launch": (_I, [_P, _P, _P, _I, _F, _F, _I, _P]),
+        "fast_levels_batch_launch": (_I, [_P, _P, _P, _I, _I, _F, _F, _I, _P]),
     },
     "hamming": {
         "hamming_best2_launch": (_I, [_P] * 10 + [_I] * 3 + [_P] * 4),

@@ -15,9 +15,10 @@ import torch
 # kernel name -> number of launches since the last reset; a wrapper adds one
 # exactly where it launches its kernel and nowhere else
 # (kernel C's stereo variant counts apart from its mono variant; one mutual
-# match of kernel B counts once as hamming_mutual, whatever it launches)
-launches: dict[str, int] = {"fast_nms_rank": 0, "hamming_best2": 0, "hamming_mutual": 0, "schur_reduce": 0,
-                            "schur_reduce_stereo": 0}
+# match of kernel B counts once as hamming_mutual, whatever it launches;
+# kernel A over a batch of images counts apart from kernel A over one image)
+launches: dict[str, int] = {"fast_nms_rank": 0, "fast_nms_rank_batch": 0, "hamming_best2": 0, "hamming_mutual": 0,
+                            "schur_reduce": 0, "schur_reduce_stereo": 0}
 
 
 def reset_launch_counts() -> None:

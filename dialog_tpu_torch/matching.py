@@ -23,8 +23,8 @@ MAX_DIST = 257       # sentinel > any 256-bit Hamming distance
 
 
 def hamming_distance_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """i32[N, 8] x i32[M, 8] -> i32[N, M] pairwise Hamming distance."""
-    return popcount32(desc_a[:, None, :] ^ desc_b[None, :, :]).sum(-1, dtype=torch.int32)
+    """i32[..., N, 8] x i32[..., M, 8] -> i32[..., N, M] pairwise Hamming distance."""
+    return popcount32(desc_a[..., :, None, :] ^ desc_b[..., None, :, :]).sum(-1, dtype=torch.int32)
 
 
 def rotation_consistency_mask(angle_a, angle_b, match_b, ok):
@@ -48,17 +48,15 @@ def match_mutual(dist, valid_a, valid_b, max_dist: int = 50, ratio: float = 1.0)
     """Mutual-nearest match with an optional Lowe ratio on the query side.
 
     dist: i32[N, M]. Returns (match_b i32[N] (-1 = none), best_dist i32[N]).
+    With leading batch dimensions on every argument, on every result too.
     """
-    d = torch.where(valid_a[:, None] & valid_b[None, :], dist, MAX_DIST)
-    best = torch.argmin(d, dim=1)
-    best_d = d.min(dim=1).values
-    N = d.shape[0]
-    ar = torch.arange(N, device=d.device)
-    d2 = d.clone()
-    d2[ar, best] = MAX_DIST
-    second_d = d2.min(dim=1).values
-    best_for_b = torch.argmin(d, dim=0)
-    mutual = best_for_b[best] == ar
+    d = torch.where(valid_a[..., :, None] & valid_b[..., None, :], dist, MAX_DIST)
+    best = torch.argmin(d, dim=-1)
+    best_d = d.min(dim=-1).values
+    ar = torch.arange(d.shape[-2], device=d.device)
+    second_d = d.scatter(-1, best[..., None], MAX_DIST).min(dim=-1).values
+    best_for_b = torch.argmin(d, dim=-2)
+    mutual = torch.gather(best_for_b, -1, best) == ar
     ok = (
         valid_a
         & (best_d <= max_dist)
@@ -90,7 +88,7 @@ def match_projected(lm_desc, lm_uv, lm_valid, lm_octave, ft_desc, ft_uv, ft_vali
     lie within ``octave_band`` levels. Returns (match_ft i32[L], best_dist i32[L]).
     """
     r = radius * torch.pow(
-        torch.tensor(scale_factor, dtype=torch.float32, device=lm_uv.device),
+        ops.scalar(scale_factor, torch.float32, lm_uv.device),
         lm_octave.to(torch.float32),
     )
     return mutual_match_fused(

@@ -12,12 +12,28 @@ a CUDA tensor:
   nondeterministic on CUDA, so duplicates are resolved before the write;
 * ``scatter_add``   -- ``x.at[idx].add(v, mode="drop")`` for integer tensors
   (integer atomics are order-free, hence deterministic);
-* ``scatter_min``   -- ``x.at[idx].min(v)``.
+* ``scatter_min``   -- ``x.at[idx].min(v)``;
+* ``scalar``        -- a Python number as a 0-d device tensor, without a host copy.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def scalar(value, dtype, device) -> torch.Tensor:
+    """A Python number as a 0-d tensor on ``device``, written by a fill kernel.
+    ``torch.tensor(value, device="cuda")`` copies it from pageable host memory
+    instead, and that copy makes the host wait until the stream has drained:
+    one stall for every constant a step uploads."""
+    return torch.full((), value, dtype=dtype, device=device)
+
+
+def _as_values(val, dst: torch.Tensor) -> torch.Tensor:
+    """``val`` (a tensor or a Python number) in ``dst``'s type, on its device."""
+    if isinstance(val, torch.Tensor):
+        return val.to(device=dst.device, dtype=dst.dtype)
+    return scalar(val, dst.dtype, dst.device)
 
 
 def top_k(x: torch.Tensor, k: int):
@@ -55,7 +71,7 @@ def scatter_set(dst: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
     n = dst.shape[0]
     idx = idx.reshape(-1).to(torch.int64)
     keep, tgt = _last_writer(idx, n)
-    val = torch.as_tensor(val, dtype=dst.dtype, device=dst.device)
+    val = _as_values(val, dst)
     val = val.expand((idx.shape[0],) + dst.shape[1:])
     out = torch.cat([dst, dst[:1]], 0)
     # row n is a write-only scratch row for every dropped entry
@@ -80,7 +96,7 @@ def scatter_add(dst: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
     idx = idx.reshape(-1).to(torch.int64)
     ok = (idx >= 0) & (idx < n)
     tgt = torch.where(ok, idx, torch.full_like(idx, n))
-    val = torch.as_tensor(val, dtype=dst.dtype, device=dst.device)
+    val = _as_values(val, dst)
     val = val.expand((idx.shape[0],) + dst.shape[1:])
     out = torch.cat([dst, torch.zeros_like(dst[:1])], 0)
     out.index_add_(0, tgt, val)

@@ -60,11 +60,16 @@ def huber_weight(chi2: torch.Tensor, delta2) -> torch.Tensor:
 
 
 def solve_damped(H: torch.Tensor, g: torch.Tensor, lam) -> torch.Tensor:
-    """Solve (H + lam * diag(H)) dx = -g (LM with multiplicative damping)."""
+    """Solve (H + lam * diag(H)) dx = -g (LM with multiplicative damping).
+
+    ``solve_ex`` is ``torch.linalg.solve`` without its check of the
+    factorization's status, which reads a flag back to the host and stalls
+    it once per LM iteration: a singular system gives a non-finite step here,
+    which ``lm_loop`` rejects on the device."""
     d = torch.diagonal(H, dim1=-2, dim2=-1)
     eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
     Hd = H + lam * eye * torch.clamp(d, min=1e-9)
-    return -torch.linalg.solve(Hd, g.unsqueeze(-1)).squeeze(-1)
+    return -torch.linalg.solve_ex(Hd, g.unsqueeze(-1), check_errors=False)[0].squeeze(-1)
 
 
 def lm_loop(cost_and_system, retract, x0, iters: int, lam0: float = 1e-3):
@@ -76,7 +81,7 @@ def lm_loop(cost_and_system, retract, x0, iters: int, lam0: float = 1e-3):
     cost, H, g = cost_and_system(x0)
     x = x0
     dev = H.device
-    lam = torch.tensor(lam0, dtype=torch.float32, device=dev)
+    lam = torch.full((), lam0, dtype=torch.float32, device=dev)   # no host copy (ops.scalar)
     for _ in range(iters):
         dx = solve_damped(H, g, lam)
         x_new = retract(x, dx)

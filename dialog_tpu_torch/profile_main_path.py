@@ -1,6 +1,6 @@
 """The port's workloads, and where their time goes on one CUDA card.
 
-    python3 -m dialog_tpu_torch.profile_main_path [--config mono|stereo|rgbd] [--out PATH]
+    python3 -m dialog_tpu_torch.profile_main_path [--config mono|stereo|rgbd] [--batch] [--out PATH]
 
 The workloads (also driven by ``chip_smoke.py``):
 
@@ -15,6 +15,12 @@ The workloads (also driven by ``chip_smoke.py``):
 * ``rgbd``: ``Engine.track_rgbd`` over 24 frames of the mono sweep scaled
   by ``RGBD_SCALE`` to indoor depths, with its depth map in TUM's units, at
   the TUM1 RGB-D settings; measured window frames 16-23.
+
+With ``--batch`` (``mono`` and ``stereo``) the window goes through the batched
+entries instead, ``frontend.extract_features_batch`` or
+``stereo.extract_and_match_stereo_batch`` and ``Engine.track_batch`` at
+``BATCH`` frames, flushed at the window's end; the frames before the window
+go per frame as without it, and the phases timed are the batched ones.
 
 Three runs of the chosen workload, each on a fresh engine:
 
@@ -46,8 +52,11 @@ N_FRAMES = 56
 FPS_FIRST = 16
 STEREO_FRAMES = 48
 RGBD_FRAMES = 24
+BATCH = 8             # bench.py's batch (``bench.py:58``)
+MONO_BATCH_FRAMES = 104     # bench.py's warm-up stretch: 8 frames one by one, then 12 batches
+STEREO_BATCH_FRAMES = 44    # 4 pairs one by one, then 5 batches
 RGBD_SCALE = 0.25   # sweep depths 4-12 -> 1-3 m, inside th_depth x baseline (3.09 m)
-SYNC_ROWS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "aten::item", "cudaMemcpyAsync")
+SYNC_ROWS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "aten::item", "cudaMemcpyAsync")
 
 
 def tum_mono_config():
@@ -127,21 +136,67 @@ def track_frames(eng, method: str, frames, first: int, last: int, fps: float) ->
     return time.perf_counter() - t0
 
 
-def plain_run(cfg, frames, dev, method="track_image", fps=30.0) -> float:
+def extract_batch(cfg, frames, first: int, dev, blank: int = 0):
+    """Frames [first, first + BATCH) through the batched frontend of their
+    kind (images, or (left, right) pairs): FrameArrays with a leading BATCH
+    on ``dev``. The first ``blank`` frames of the batch are made invalid (an
+    occlusion, as bench.py forces one in its warm-up)."""
+    from .frontend import extract_features_batch
+    from .stereo import extract_and_match_stereo_batch
+
+    chunk = frames[first : first + BATCH]
+    if isinstance(chunk[0], tuple):
+        left = torch.from_numpy(np.stack([x[0] for x in chunk])).to(dev)
+        right = torch.from_numpy(np.stack([x[1] for x in chunk])).to(dev)
+        batch = extract_and_match_stereo_batch(left, right, cfg)
+    else:
+        batch = extract_features_batch(torch.from_numpy(np.stack(chunk)).to(dev), cfg)
+    if blank:
+        valid = batch.valid.clone()
+        valid[:blank] = False
+        batch = batch._replace(valid=valid)
+    return batch
+
+
+def track_batches(eng, frames, first: int, last: int, fps: float, occlude_at: int | None = None) -> float:
+    """Feed frames [first, last) to ``eng.track_batch`` in batches of BATCH
+    (the batch that starts at ``occlude_at`` with its first half blank), then
+    flush; returns the wall seconds, device synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(first, last - BATCH + 1, BATCH):
+        batch = extract_batch(eng.cfg, frames, i, eng.device, blank=BATCH // 2 if i == occlude_at else 0)
+        eng.track_batch(batch, [float(i + j) / fps for j in range(BATCH)])
+    eng.flush()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _window(eng, method, frames, fps, batch: bool) -> float:
+    if batch:
+        return track_batches(eng, frames, FPS_FIRST, len(frames), fps)
+    return track_frames(eng, method, frames, FPS_FIRST, len(frames), fps)
+
+
+def plain_run(cfg, frames, dev, method="track_image", fps=30.0, batch=False) -> float:
     from .system import Engine
 
     eng = Engine(cfg, device=dev)
     track_frames(eng, method, frames, 0, FPS_FIRST, fps)
-    return track_frames(eng, method, frames, FPS_FIRST, len(frames), fps)
+    return _window(eng, method, frames, fps, batch)
 
 
-def phase_run(cfg, frames, dev, method="track_image", fps=30.0) -> dict:
+def phase_run(cfg, frames, dev, method="track_image", fps=30.0, batch=False) -> dict:
     """Window wall time and each phase's synchronised host time."""
-    from . import mapping, system, tracking
+    from . import frontend, mapping, stereo, system, tracking
 
     spent: dict[str, float] = {}
     originals = [(system, "extract_features"), (system, "stereo_match_frames"), (tracking, "fused_track_step"),
                  (mapping, "process_new_keyframe"), (system, "local_bundle_adjustment")]
+    if batch:
+        # the batched stereo frontend holds its extraction: the two are timed apart
+        originals = [(frontend, "extract_features_batch"), (stereo, "stereo_match_frames"),
+                     (tracking, "fused_track_multi"), (system.Engine, "_resolve_batch")] + originals[3:]
     saved = [getattr(mod, name) for mod, name in originals]
 
     def timed(name, fn):
@@ -160,7 +215,7 @@ def phase_run(cfg, frames, dev, method="track_image", fps=30.0) -> dict:
     try:
         for (mod, name), fn in zip(originals, saved):
             setattr(mod, name, timed(name, fn))
-        total = track_frames(eng, method, frames, FPS_FIRST, len(frames), fps)
+        total = _window(eng, method, frames, fps, batch)
     finally:
         for (mod, name), fn in zip(originals, saved):
             setattr(mod, name, fn)
@@ -180,15 +235,14 @@ def _busy_seconds(events) -> float:
     return busy * 1e-6
 
 
-def profiled_run(cfg, frames, dev, method="track_image", fps=30.0) -> dict:
+def profiled(fn) -> dict:
+    """``fn()`` (which returns its wall seconds) under ``torch.profiler``:
+    the device's busy time, its kernels, the host's sync rows and the top
+    rows by device and by host time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from .system import Engine
-
-    eng = Engine(cfg, device=dev)
-    track_frames(eng, method, frames, 0, FPS_FIRST, fps)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = track_frames(eng, method, frames, FPS_FIRST, len(frames), fps)
+        wall = fn()
     events = prof.events()
     rows = prof.key_averages()
     device_rows = sorted((r for r in rows if r.device_time_total > 0), key=lambda r: -r.device_time_total)
@@ -205,9 +259,18 @@ def profiled_run(cfg, frames, dev, method="track_image", fps=30.0) -> dict:
     }
 
 
+def profiled_run(cfg, frames, dev, method="track_image", fps=30.0, batch=False) -> dict:
+    from .system import Engine
+
+    eng = Engine(cfg, device=dev)
+    track_frames(eng, method, frames, 0, FPS_FIRST, fps)
+    return profiled(lambda: _window(eng, method, frames, fps, batch))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", choices=sorted(WORKLOADS), default="mono", help="the workload (module doc)")
+    ap.add_argument("--batch", action="store_true", help="the window through the batched entries (mono, stereo)")
     ap.add_argument("--out", default=None, help="also write the JSON result here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -220,14 +283,17 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     build.load_all()
     make_cfg, make_frames, method, fps = WORKLOADS[args.config]
+    if args.batch and args.config == "rgbd":
+        raise SystemExit("--batch drives the mono and stereo workloads")
     cfg = make_cfg()
     _, frames = make_frames(cfg)
-    plain_s = plain_run(cfg, frames, dev, method, fps)
-    phases = phase_run(cfg, frames, dev, method, fps)
-    prof = profiled_run(cfg, frames, dev, method, fps)
+    plain_s = plain_run(cfg, frames, dev, method, fps, args.batch)
+    phases = phase_run(cfg, frames, dev, method, fps, args.batch)
+    prof = profiled_run(cfg, frames, dev, method, fps, args.batch)
     n = len(frames) - FPS_FIRST
     out = {
-        "card": card, "config": args.config, "frames": n, "plain_wall_s": plain_s, "frames_per_s": n / plain_s,
+        "card": card, "config": args.config, "batch": BATCH if args.batch else 0, "frames": n,
+        "plain_wall_s": plain_s, "frames_per_s": n / plain_s,
         "phases": phases, "profiled": prof,
         "idle_share_profiled": 1.0 - prof["device_busy_s"] / prof["wall_s"],
         "idle_share_plain": 1.0 - prof["device_busy_s"] / plain_s,

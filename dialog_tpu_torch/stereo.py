@@ -26,27 +26,32 @@ def _sad_refine(img_l: torch.Tensor, img_r: torch.Tensor, uv_l: torch.Tensor, uR
 
     Patches are plain gathers at the rounded keypoint, their windows clamped
     into the image as the reference clamps them. Returns (uR f32[N], ok
-    bool[N]); a best offset at either end of the slide fails ``ok``."""
-    H, W = img_l.shape
+    bool[N]); a best offset at either end of the slide fails ``ok``. With a
+    leading B on every argument (images [B, H, W]), on both results too."""
+    H, W = img_l.shape[-2:]
     P = 2 * SAD_W + 1
     WIDE = P + 2 * SAD_L
     dev = img_l.device
-    xl = torch.round(uv_l[:, 0]).to(torch.int64)
-    yl = torch.round(uv_l[:, 1]).to(torch.int64)
+    xl = torch.round(uv_l[..., 0]).to(torch.int64)
+    yl = torch.round(uv_l[..., 1]).to(torch.int64)
     xr = torch.round(uR0).to(torch.int64)
-    rows = torch.clamp(yl - SAD_W, 0, H - P)[:, None] + torch.arange(P, device=dev)          # [N, P]
-    cols_l = torch.clamp(xl - SAD_W, 0, W - P)[:, None] + torch.arange(P, device=dev)        # [N, P]
-    cols_r = torch.clamp(xr - SAD_W - SAD_L, 0, W - WIDE)[:, None] + torch.arange(WIDE, device=dev)
-    patch_l = img_l[rows[:, :, None], cols_l[:, None, :]]                                    # [N, P, P]
-    strip_r = img_r[rows[:, :, None], cols_r[:, None, :]]                                    # [N, P, WIDE]
-    windows = strip_r.unfold(2, P, 1)                                                        # [N, P, 2L+1, P]
-    sads = torch.abs(patch_l[:, :, None, :] - windows).sum(dim=(1, 3))                      # [N, 2L+1]
+    rows = torch.clamp(yl - SAD_W, 0, H - P)[..., None] + torch.arange(P, device=dev)        # [N, P]
+    cols_l = torch.clamp(xl - SAD_W, 0, W - P)[..., None] + torch.arange(P, device=dev)      # [N, P]
+    cols_r = torch.clamp(xr - SAD_W - SAD_L, 0, W - WIDE)[..., None] + torch.arange(WIDE, device=dev)
+    if img_l.dim() == 2:
+        at = (rows[..., :, None],)
+    else:
+        at = (torch.arange(img_l.shape[0], device=dev)[:, None, None, None], rows[..., :, None])
+    patch_l = img_l[at + (cols_l[..., None, :],)]                                            # [N, P, P]
+    strip_r = img_r[at + (cols_r[..., None, :],)]                                            # [N, P, WIDE]
+    windows = strip_r.unfold(-1, P, 1)                                                       # [N, P, 2L+1, P]
+    sads = torch.abs(patch_l[..., :, None, :] - windows).sum(dim=(-3, -1))                  # [N, 2L+1]
     best = torch.argmin(sads, dim=-1)
     at_edge = (best == 0) | (best == 2 * SAD_L)
     b = torch.clamp(best, 1, 2 * SAD_L - 1)
-    s_m = torch.gather(sads, 1, (b - 1)[:, None])[:, 0]
-    s_0 = torch.gather(sads, 1, b[:, None])[:, 0]
-    s_p = torch.gather(sads, 1, (b + 1)[:, None])[:, 0]
+    s_m = torch.gather(sads, -1, (b - 1)[..., None])[..., 0]
+    s_0 = torch.gather(sads, -1, b[..., None])[..., 0]
+    s_p = torch.gather(sads, -1, (b + 1)[..., None])[..., 0]
     denom = torch.clamp(s_m + s_p - 2.0 * s_0, min=1e-6)
     delta = torch.clamp(0.5 * (s_m - s_p) / denom, -1.0, 1.0)
     uR = xr.to(torch.float32) + (b - SAD_L).to(torch.float32) + delta
@@ -56,7 +61,7 @@ def _sad_refine(img_l: torch.Tensor, img_r: torch.Tensor, uv_l: torch.Tensor, uR
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
     """``x`` as a 0-d f32 tensor: ``_f32(c) / t`` is a true f32 division,
     where torch computes ``c / t`` for a Python ``c`` as ``c * (1 / t)``."""
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
 def stereo_match_frames(left: FrameArrays, right: FrameArrays, cfg: EngineConfig,
@@ -65,25 +70,40 @@ def stereo_match_frames(left: FrameArrays, right: FrameArrays, cfg: EngineConfig
 
     Gates: octaves at most one apart, |row difference| <= 2 x the left
     feature's scale, disparity in (0.1, bf/baseline). With both images the
-    matched right-x is refined to sub-pixel by row SAD."""
+    matched right-x is refined to sub-pixel by row SAD. With a leading B on
+    every leaf of both frames (and images [B, H, W]) it matches B pairs at once."""
     # max disparity bf / minZ with minZ = baseline, in f32 as the reference
     max_disp = _f32(cfg.bf, left.uv) / torch.clamp(_f32(cfg.baseline, left.uv), min=1e-6)
     dist = matching.hamming_distance_matrix(left.desc, right.desc)
     scale_l = torch.pow(_f32(cfg.scale_factor, left.uv), left.octave.to(torch.float32))
-    row_ok = torch.abs(left.uv[:, None, 1] - right.uv[None, :, 1]) <= 2.0 * scale_l[:, None]
-    disp = left.uv[:, None, 0] - right.uv[None, :, 0]
+    row_ok = torch.abs(left.uv[..., :, None, 1] - right.uv[..., None, :, 1]) <= 2.0 * scale_l[..., :, None]
+    disp = left.uv[..., :, None, 0] - right.uv[..., None, :, 0]
     disp_ok = (disp > 0.1) & (disp < max_disp)
-    oct_ok = torch.abs(left.octave[:, None] - right.octave[None, :]) <= 1
+    oct_ok = torch.abs(left.octave[..., :, None] - right.octave[..., None, :]) <= 1
     gated = torch.where(row_ok & disp_ok & oct_ok, dist, matching.MAX_DIST)
     match_r, _ = matching.match_mutual(gated, left.valid, right.valid, max_dist=cfg.th_high, ratio=1.0)
     ok = match_r >= 0
-    uR = right.uv[torch.clamp(match_r, 0, right.uv.shape[0] - 1).long(), 0]
+    uR = torch.gather(right.uv[..., 0], -1, torch.clamp(match_r, 0, right.uv.shape[-2] - 1).long())
     if img_left is not None and img_right is not None:
         uR, ok = _sad_refine(img_left, img_right, left.uv_raw, uR, ok)
-    d = left.uv[:, 0] - uR
+    d = left.uv[..., 0] - uR
     ok = ok & (d > 0.1) & (d < max_disp)
     depth = torch.where(ok, _f32(cfg.bf, d) / torch.clamp(d, min=0.1), -1.0)
     return left._replace(u_right=torch.where(ok, uR, -1.0), depth=depth)
+
+
+def extract_and_match_stereo_batch(imgs_l: torch.Tensor, imgs_r: torch.Tensor, cfg: EngineConfig) -> FrameArrays:
+    """Stereo frontend of B pairs: the 2B images go through the batched
+    frontend as one stack (kernel A once), then all B pairs are row-matched
+    and SAD-refined at once. f32[B, H, W] x 2 -> left FrameArrays with a
+    leading B and ``u_right``/``depth`` filled."""
+    from .frontend import extract_features_batch
+
+    B = imgs_l.shape[0]
+    feats = extract_features_batch(torch.cat([imgs_l, imgs_r], dim=0), cfg)
+    fl = FrameArrays(*[x[:B] for x in feats])
+    fr = FrameArrays(*[x[B:] for x in feats])
+    return stereo_match_frames(fl, fr, cfg, img_left=imgs_l.to(torch.float32), img_right=imgs_r.to(torch.float32))
 
 
 def depth_from_rgbd(frame: FrameArrays, depth_img: torch.Tensor, cfg: EngineConfig) -> FrameArrays:

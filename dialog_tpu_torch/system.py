@@ -8,10 +8,18 @@ The host runs the scalar state machine (NOT_INITIALIZED / OK / LOST) and
 calls the tensor steps; the map lives on ``device`` as a ``MapState``. Per
 tracked frame the host reads one packed vector (pose, relative pose, counts).
 
-This engine has no place recognition yet: no vocabulary, no relocalization,
-no loop closing and no global BA. A LOST frame retries tracking from the last
-pose, which is what the reference does until its vocabulary exists
-(``vocab_min_kfs`` keyframes).
+Three ways in: ``track_features`` (and the image entries above it) reads
+that vector at once; ``track_features_async`` keeps ``pipeline_depth``
+frames in flight and reads each one's vector that much later;
+``track_batch`` queues B frames against a frozen map and reads their
+vectors in one pull when the next batch arrives, so mapping lags tracking by
+a batch. A pull is a non-blocking copy into pinned host memory with a CUDA
+event behind it; the resolve waits on that event alone.
+
+Place recognition: a vocabulary trained from the map's own descriptors at
+``vocab_min_kfs`` keyframes (retrained when their number has doubled), one
+BoW row per keyframe, and relocalization of a LOST frame (BoW candidates,
+PnP RANSAC, pose refinement). Loop closing and global BA are not here yet.
 """
 
 from __future__ import annotations
@@ -24,11 +32,14 @@ import torch
 
 from . import geometry as geo
 from . import mapping, matching, tracking
+from . import pnp as _pnp
+from . import vocab as _vocab
 from .config import EngineConfig, Sensor
 from .containers import INVALID_ID, FrameArrays, MapMeta, MapState, empty_map, pack_map_meta
 from .frontend import extract_features
 from .init2view import initialize_two_view
 from .optim.local_ba import local_bundle_adjustment
+from .optim.pose_only import pose_optimization
 from .stereo import depth_from_rgbd, stereo_match_frames
 
 NOT_INITIALIZED = "NOT_INITIALIZED"
@@ -84,15 +95,27 @@ class Engine:
         self._init_frame: Optional[FrameArrays] = None
         self._init_ts = 0.0
         self._init_fid = 0
+        self._last_frame: Optional[FrameArrays] = None
         self._last_lm_ids = None
         self._last_R = np.eye(3, dtype=np.float32)
         self._last_t = np.zeros(3, dtype=np.float32)
         self._vel: Optional[tuple[np.ndarray, np.ndarray]] = None
         self.trajectory: list[FrameRecord] = []
-        # RANSAC minimal sets come from this generator (the reference's
-        # PRNGKey(n_features); the two streams differ by construction)
+        # RANSAC minimal sets and the vocabulary's initial sample come from
+        # this generator (the reference's PRNGKey(n_features); the two streams
+        # differ by construction)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(cfg.n_features)
+        # place recognition
+        self._vocab: Optional[_vocab.Vocabulary] = None
+        self._bow_db: Optional[torch.Tensor] = None   # f32[K, W] BoW vector per keyframe
+        self._vocab_trained_kfs = 0                   # kf_count at the last (re)train
+        # pipelined tracking: frames (track_features_async) and batches
+        # (track_batch) in flight, and the device-side tracking state they chain
+        self._pending: list = []
+        self._pending_b: list = []
+        self._dev_state: Optional[dict] = None
+        self.pipeline_depth = 3
         # keyframe slot recycling: host view of live slots + allocations the
         # last device snapshot has not confirmed yet (slot -> expected seq)
         self._kf_valid_host = np.zeros(cfg.max_keyframes, bool)
@@ -129,6 +152,7 @@ class Engine:
 
     def track_features(self, frame: FrameArrays, timestamp: float) -> FrameRecord:
         """Track a pre-extracted feature frame (also the synthetic-data entry)."""
+        # (an in-flight global BA would advance by one chunk here: not ported yet)
         if self.state == NOT_INITIALIZED:
             rec = self._initialize(frame, timestamp)
         else:
@@ -136,6 +160,236 @@ class Engine:
         self._append_record(rec)
         self.frame_id += 1
         return rec
+
+    # --- pipelined tracking (throughput mode) --------------------------
+
+    def _chain_state(self) -> dict:
+        """The device-side state the next pipelined step starts from."""
+        if self._dev_state is not None:
+            return self._dev_state
+        R, t = self._tensor(self._last_R), self._tensor(self._last_t)
+        return {"R": R, "t": t, "R_prev": R, "t_prev": t, "lm_ids": self._last_lm_ids,
+                "has_vel": torch.zeros((), dtype=torch.bool, device=self.device)}
+
+    def _start_pull(self, packed: torch.Tensor):
+        """Start the host copy of ``packed`` (flattened) followed by the
+        keyframe bookkeeping snapshot of the map as it stands, as ONE
+        vector: (host tensor, event). On the card the copy is non-blocking
+        into pinned memory and the event is recorded behind it; the bytes
+        are the result only once the event has passed (``_finish_pull``)."""
+        vec = torch.cat([packed.reshape(-1), pack_map_meta(self.m)])
+        if vec.device.type != "cuda":
+            return vec, None
+        host = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
+        host.copy_(vec, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(vec.device))
+        return host, done
+
+    @staticmethod
+    def _finish_pull(pull) -> np.ndarray:
+        """Wait for the pull's event, and for nothing else; the result is a
+        copy, so the pinned block goes back to its pool."""
+        host, done = pull
+        if done is not None:
+            done.synchronize()
+        return np.array(host.numpy())
+
+    def track_features_async(self, frame: FrameArrays, timestamp: float):
+        """Pipelined entry: queue this frame's device step and resolve the
+        frame ``pipeline_depth`` steps back, whose result has long been
+        copied. The step takes its prediction and its fallback on the device,
+        so queueing never waits for the card; mapping lags tracking by the
+        depth. Returns the resolved frame's record (None while the pipeline
+        fills; the frame's own record while the engine is not OK)."""
+        if self.state != OK or self._last_lm_ids is None:
+            self.flush()
+            self.track_features(frame, timestamp)
+            return self.trajectory[-1]
+        cfg = self.cfg
+        dev = self._chain_state()
+        R_d, t_d, lm_ids_d, packed, counts = tracking.fused_track_step_auto(
+            self.m, dev["lm_ids"], frame, dev["R"], dev["t"], dev["R_prev"], dev["t_prev"], dev["has_vel"],
+            self.ref_kf, cfg, use_stereo=cfg.sensor != Sensor.MONOCULAR and cfg.bf > 0,
+        )
+        self.m = tracking.apply_track_counts(self.m, counts)
+        self._dev_state = {"R": R_d, "t": t_d, "R_prev": dev["R"], "t_prev": dev["t"], "lm_ids": lm_ids_d,
+                           "has_vel": torch.ones((), dtype=torch.bool, device=self.device)}
+        # the keyframe bookkeeping snapshot rides every pull, so keyframe
+        # culls are seen without a blocking refresh on this path
+        pull = self._start_pull(packed)
+        self._pending.append((frame, timestamp, self.frame_id, self.ref_kf, R_d, t_d, lm_ids_d, pull))
+        self.frame_id += 1
+        if len(self._pending) > self.pipeline_depth:
+            return self._resolve_oldest()
+        return None
+
+    def track_batch(self, frames: FrameArrays, timestamps) -> list[FrameRecord]:
+        """Batched pipelined entry: track B frames (a leading B on every leaf
+        of ``frames``, e.g. from ``frontend.extract_features_batch``) against
+        the map as it stands, with one host pull for the batch. Results
+        resolve one batch behind. Returns the records this call resolved
+        (possibly none)."""
+        B = len(timestamps)
+        # (an in-flight global BA would advance by one chunk here: not ported yet)
+        if self.state != OK or self._last_lm_ids is None:
+            # per frame until healthy; the next batch re-enters batched mode
+            self.flush()
+            return [self.track_features(FrameArrays(*[x[b] for x in frames]), float(timestamps[b]))
+                    for b in range(B)]
+        # resolve the in-flight batch BEFORE queueing this one: its pull was
+        # started a batch ago, and any keyframe the resolve creates lands in
+        # the map this batch tracks against
+        out = []
+        if self._pending_b:
+            out = self._resolve_batch()
+            if self.state != OK:
+                # recovery: this batch goes through the per-frame path (relocalization)
+                out += [self.track_features(FrameArrays(*[x[b] for x in frames]), float(timestamps[b]))
+                        for b in range(B)]
+                return out
+        cfg = self.cfg
+        dev = self._chain_state()
+        R_l, t_l, R_p, t_p, lm_l, packed, counts = tracking.fused_track_multi(
+            self.m, dev["lm_ids"], frames, dev["R"], dev["t"], dev["R_prev"], dev["t_prev"], dev["has_vel"],
+            self.ref_kf, cfg, use_stereo=cfg.sensor != Sensor.MONOCULAR and cfg.bf > 0,
+        )
+        self.m = tracking.apply_track_counts(self.m, counts)
+        self._dev_state = {"R": R_l, "t": t_l, "R_prev": R_p, "t_prev": t_p, "lm_ids": lm_l,
+                           "has_vel": torch.ones((), dtype=torch.bool, device=self.device)}
+        fids = list(range(self.frame_id, self.frame_id + B))
+        self.frame_id += B
+        # (a pending loop detection would be taken here and evaluated at the
+        # resolve: loop closing is not ported yet)
+        pull = self._start_pull(packed)
+        self._pending_b.append((frames, [float(t) for t in timestamps], fids, self.ref_kf, lm_l, pull))
+        return out
+
+    def _resolve_batch(self) -> list[FrameRecord]:
+        frames, ts_list, fids, ref_launch, lm_l, pull = self._pending_b.pop(0)
+        cfg = self.cfg
+        B = len(ts_list)
+        V = self._finish_pull(pull)                  # ONE pull per batch
+        P = V[: B * 26].reshape(B, 26)
+        out = []
+        lost_at = None
+        for b in range(B):
+            p = P[b]
+            n_tracked = int(p[24])
+            if n_tracked < cfg.min_inliers_local:
+                lost_at = b
+                break
+            rec = FrameRecord(
+                frame_id=fids[b], timestamp=ts_list[b], R=p[:9].reshape(3, 3), t=p[9:12], state=OK,
+                n_tracked=n_tracked, ref_kf=ref_launch, R_rel=p[12:21].reshape(3, 3), t_rel=p[21:24],
+            )
+            self._append_record(rec)
+            out.append(rec)
+            self._last_R, self._last_t = rec.R, rec.t
+        # the keyframe bookkeeping snapshot taken when this batch was queued
+        self._observe_kf_meta(MapMeta(V[B * 26 :], cfg.max_keyframes))
+        if lost_at is not None:
+            # tracking failed mid-batch: the rest of this batch and every
+            # deeper batch in flight were computed against a state that no
+            # longer holds. Re-track them frame by frame: state LOST sends
+            # each through relocalization.
+            retrack = [(FrameArrays(*[x[b] for x in frames]), ts_list[b], fids[b]) for b in range(lost_at, B)]
+            for fr2, ts2, fid2, *_ in self._pending_b:
+                retrack += [(FrameArrays(*[x[b] for x in fr2]), ts2[b], fid2[b]) for b in range(len(ts2))]
+            self._pending_b.clear()
+            self._dev_state = None
+            self.state = LOST
+            self._vel = None
+            fid_after = self.frame_id
+            for fb, ts_b, fid_b in retrack:
+                self.frame_id = fid_b
+                out.append(self.track_features(fb, float(ts_b)))
+            self.frame_id = fid_after
+            return out
+        # keyframe decision: the batch's LAST frame is the only candidate (its
+        # pose and its associations lm_l belong together); one keyframe per
+        # batch keeps mapping bounded
+        n_last = int(P[B - 1, 24])
+        self._last_lm_ids = lm_l
+        self._last_frame = None
+        self.state = OK
+        slot = None
+        if self._need_keyframe(n_last, fid=fids[B - 1]):
+            slot = self._alloc_kf_slot()
+        if slot is not None:
+            self._insert_keyframe(FrameArrays(*[x[B - 1] for x in frames]), ts_list[B - 1], fids[B - 1],
+                                  self._tensor(P[B - 1, :9].reshape(3, 3)), self._tensor(P[B - 1, 9:12]), lm_l,
+                                  slot, n_last)
+        return out
+
+    def shutdown(self) -> None:
+        """Drain all in-flight work; the engine remains usable afterwards."""
+        self.flush()
+
+    def flush(self) -> None:
+        """Drain the pipeline (call before reading the trajectory)."""
+        while self._pending:
+            self._resolve_oldest()
+        while self._pending_b:
+            self._resolve_batch()
+        # (an in-flight global BA would run to its end here: not ported yet)
+        self._dev_state = None
+
+    def _resolve_oldest(self) -> FrameRecord:
+        frame, ts, fid, ref_launch, R_d, t_d, lm_ids_d, pull = self._pending.pop(0)
+        cfg = self.cfg
+        p = self._finish_pull(pull)
+        self._observe_kf_meta(MapMeta(p[26:], cfg.max_keyframes))
+        n_tracked = int(p[24])
+        if n_tracked < cfg.min_inliers_local:
+            # tracking failed at this frame: the frames in flight were computed
+            # against the state before the loss and are recorded LOST with it
+            dropped = [(e[1], e[2], e[3]) for e in self._pending]
+            self._pending.clear()
+            self._dev_state = None
+            self.state = LOST
+            self._vel = None
+            rec = None
+            for d_ts, d_fid, d_ref in [(ts, fid, ref_launch)] + dropped:
+                lost = FrameRecord(frame_id=d_fid, timestamp=d_ts, R=self._last_R, t=self._last_t, state=LOST,
+                                   n_tracked=0, ref_kf=d_ref)
+                self._append_record(lost)
+                rec = rec or lost
+            return rec
+        rec = FrameRecord(
+            frame_id=fid, timestamp=ts, R=p[:9].reshape(3, 3), t=p[9:12], state=OK, n_tracked=n_tracked,
+            ref_kf=ref_launch, R_rel=p[12:21].reshape(3, 3), t_rel=p[21:24],
+        )
+        self._append_record(rec)
+        self._last_R, self._last_t = rec.R, rec.t
+        self._last_frame = frame
+        self._last_lm_ids = lm_ids_d
+        self.state = OK
+        slot = None
+        if self._need_keyframe(n_tracked, fid=fid):
+            slot = self._alloc_kf_slot()
+        if slot is not None:
+            self._insert_keyframe(frame, ts, fid, R_d, t_d, lm_ids_d, slot, n_tracked)
+        return rec
+
+    def _insert_keyframe(self, frame, ts, fid, R, t, lm_ids, slot, n_tracked) -> None:
+        """The keyframe pipeline: insertion, local BA, the vocabulary and the
+        BoW row. The pipelined entries go on from their device-side state, so
+        they do not read the refined pose back."""
+        cfg = self.cfg
+        self.m = mapping.process_new_keyframe(
+            self.m, frame, R, t, lm_ids, fid, ts, slot, self.ref_kf, cfg,
+            spawn_depth=cfg.sensor != Sensor.MONOCULAR, n_neighbors=cfg.kf_tri_neighbors,
+        )
+        if self.kf_count >= 2:
+            self.m = local_bundle_adjustment(self.m, slot, cfg, iters=cfg.local_ba_iters)
+        self.ref_kf = slot
+        self.kf_count += 1
+        self.last_kf_frame_id = fid
+        self.last_kf_tracked = n_tracked
+        self._ensure_vocab()
+        self._update_bow_row(slot)
+        # (loop detection for the new keyframe would run, or in the batch path be queued, here: not ported yet)
 
     def final_poses(self) -> list[tuple[np.ndarray, np.ndarray]]:
         """Per-frame world->camera poses composed against the current map."""
@@ -343,6 +597,7 @@ class Engine:
         self.ref_kf = 1
         self.last_kf_frame_id = self.frame_id
         self.state = OK
+        self._last_frame = frame
         self._last_lm_ids = lm1
         self._last_R = _host(R1)
         self._last_t = _host(t1)
@@ -368,6 +623,7 @@ class Engine:
         self.ref_kf = 0
         self.last_kf_frame_id = self.frame_id
         self.state = OK
+        self._last_frame = frame
         self._last_lm_ids = self.m.kfs.obs_lm[0]
         self._last_R = np.eye(3, dtype=np.float32)
         self._last_t = np.zeros(3, dtype=np.float32)
@@ -385,7 +641,11 @@ class Engine:
 
     def _track(self, frame: FrameArrays, ts: float) -> FrameRecord:
         cfg = self.cfg
-        # a LOST frame retries tracking from the last known pose
+        if self.state == LOST:
+            rec = self._try_relocalize(frame, ts)
+            if rec is not None:
+                return rec
+            # not recovered: retry tracking from the last known pose
         if self._vel is not None:
             Rv, tv = self._vel
             R_pred = Rv @ self._last_R
@@ -408,6 +668,7 @@ class Engine:
         t_cur = p[9:12]
         self._vel = (R_cur @ self._last_R.T, t_cur - (R_cur @ self._last_R.T) @ self._last_t)
         self._last_R, self._last_t = R_cur, t_cur
+        self._last_frame = frame
         self._last_lm_ids = lm_ids
         self.state = OK
 
@@ -422,9 +683,110 @@ class Engine:
 
     def _handle_lost(self, frame: FrameArrays, ts: float) -> FrameRecord:
         self.state = LOST
+        self._last_frame = frame
         self._vel = None
         ref = self.ref_kf if self.kf_count > 0 else -1
         return self._record(ts, self._last_R, self._last_t, 0, ref_kf=ref)
+
+    # --- place recognition and relocalization ---------------------------
+
+    def _ensure_vocab(self) -> None:
+        """Train, and now and then retrain, the codebook from the map's own
+        descriptors: first at ``vocab_min_kfs`` keyframes, again whenever
+        their number has doubled since, so the words follow the scene. A
+        fresh train starts from a random sample of the valid descriptors
+        (drawn from the engine's generator), a retrain from the current
+        words. idf comes from the keyframe corpus, and every keyframe's BoW
+        row is rebuilt under the new codebook in one pass."""
+        if self.kf_count < self.cfg.vocab_min_kfs:
+            return
+        if self._vocab is not None and self.kf_count < 2 * max(self._vocab_trained_kfs, 1):
+            return
+        kfs = self.m.kfs
+        K, F = kfs.obs_lm.shape
+        desc = kfs.desc.reshape(K * F, 8)
+        feat_ok = kfs.feat_valid & kfs.valid[:, None]
+        valid = feat_ok.reshape(K * F)
+        W = self.cfg.vocab_words
+        init = _vocab.draw_init_words(desc, valid, W, self._gen) if self._vocab is None else self._vocab.words
+        vocab = _vocab.train_vocab(desc, valid, init, n_words=W, iters=4)
+        if W >= 8192:
+            # large codebooks get the two-level quantizer
+            vocab = _vocab.build_two_level(vocab, n_coarse=max(64, int(np.sqrt(W))))
+        self._vocab_trained_kfs = self.kf_count
+        # invalid slots quantize to the sentinel word and fall out of the counts
+        wid = _vocab.quantize(vocab, desc, valid)
+        doc_ids = torch.arange(K, dtype=torch.int32, device=desc.device).repeat_interleave(F)
+        self._vocab = _vocab.compute_idf(vocab, wid, doc_ids, K, n_live=kfs.valid.sum())
+        self._bow_db = _vocab.bow_db_rows(self._vocab, kfs.desc, feat_ok)
+
+    def _update_bow_row(self, slot: int) -> None:
+        if self._vocab is None:
+            return
+        kfs = self.m.kfs
+        self._bow_db[slot] = _vocab.bow_vector(self._vocab, kfs.desc[slot], kfs.feat_valid[slot])
+
+    def _try_relocalize(self, frame: FrameArrays, ts: float) -> Optional[FrameRecord]:
+        """BoW candidates -> PnP RANSAC -> pose refinement (reference:
+        Tracking::Relocalization). Candidates: keyframes sharing at least 0.8
+        of the most words shared with any, grouped with their covisible
+        candidates; each well-scoring group's best member is tried, best
+        first, three at most. Returns a record on success, else None."""
+        self._ensure_vocab()
+        if self._vocab is None:
+            return None
+        cfg = self.cfg
+        q = _vocab.bow_vector(self._vocab, frame.desc, frame.valid)
+        scores = torch.where(self.m.kfs.valid, _vocab.bow_l1_scores(q, self._bow_db), -1.0)
+        common = _host((self._bow_db > 0).to(torch.float32) @ (q > 0).to(torch.float32)).copy()
+        scores = _host(scores)
+        valid = _host(self.m.kfs.valid)
+        common[~valid] = 0.0
+        cand_mask = valid & (scores > 0.0)
+        if cand_mask.any():
+            max_cw = common[cand_mask].max()
+            if max_cw > 0:
+                cand_mask &= common >= 0.8 * max_cw
+        cands = np.nonzero(cand_mask)[0]
+        if len(cands) > 1:
+            covis = _host(self.m.covis)        # a blocking read; relocalization is rare
+            acc = np.empty(len(cands), np.float32)
+            best_member = np.empty(len(cands), np.int64)
+            for i, c in enumerate(cands):
+                group = (covis[int(c)] > 0) & cand_mask
+                group[int(c)] = True
+                members = np.nonzero(group)[0]
+                acc[i] = scores[members].sum()
+                best_member[i] = members[np.argmax(scores[members])]
+            best = np.unique(best_member[acc >= 0.75 * acc.max()])
+            order = [int(c) for c in best[np.argsort(-scores[best])]][:3]
+        else:
+            order = [int(c) for c in cands]
+        for cand in order:
+            if float(scores[cand]) <= 0.0:
+                break
+            lm_ids, n = tracking.match_reference_kf(self.m, cand, frame, cfg)
+            if int(n) < 15:
+                continue
+            X, uv, inv_s2, ok = tracking.gather_track_problem(self.m, frame, lm_ids, cfg)
+            pnp = _pnp.solve_pnp_ransac(X, uv, ok, cfg.fx, cfg.fy, cfg.cx, cfg.cy,
+                                        _pnp.draw_pnp_sets(ok, cfg.pnp_ransac_iters, self._gen))
+            if not bool(pnp.success):
+                continue
+            res = pose_optimization(pnp.R, pnp.t, X, uv, inv_s2, ok, cfg.fx, cfg.fy, cfg.cx, cfg.cy,
+                                    chi2_th=cfg.chi2_mono)
+            n_inl = int(res.n_inliers)
+            if n_inl < cfg.reloc_min_inliers:
+                continue
+            self.state = OK
+            self.ref_kf = cand
+            self._last_R = _host(res.R)
+            self._last_t = _host(res.t)
+            self._last_frame = frame
+            self._last_lm_ids = torch.where(res.inlier, lm_ids, INVALID_ID)
+            self._vel = None
+            return self._record(ts, res.R, res.t, n_inl, ref_kf=cand)
+        return None
 
     # --- keyframe policy (reference: NeedNewKeyFrame) --------------------
 
@@ -433,9 +795,19 @@ class Engine:
             # at capacity: a standalone cull pass keeps freeing slots
             self.stats["kf_slot_full"] += 1
             self.m = mapping.cull_keyframes(self.m, self.ref_kf, self.cfg)
-            self._refresh_kf_meta_blocking()
+            if not self._pending_b and not self._pending:
+                # no pull in flight to learn the freed slot from
+                self._refresh_kf_meta_blocking()
             return False
         fid = self.frame_id if fid is None else fid
+        # frames resolved from the per-frame pipeline were queued before the
+        # last keyframe's map update landed: without a cooldown the weak and
+        # starving triggers fire again on every lagged frame
+        if self._pending and fid - self.last_kf_frame_id < len(self._pending) + 2:
+            return False
+        # batches decide once each: at least one whole batch between keyframes
+        if self._pending_b and fid - self.last_kf_frame_id < len(self._pending_b[0][1]):
+            return False
         since = fid - self.last_kf_frame_id
         if since < 1:
             return False
@@ -445,21 +817,15 @@ class Engine:
         return ((weak or starving) and n_tracked > 15) or stale
 
     def _create_keyframe(self, frame, ts, R, t, lm_ids, n_tracked):
-        cfg = self.cfg
+        """The per-frame entry's keyframe: the shared pipeline, then tracking
+        goes on from the refined pose and the keyframe's own associations."""
         slot = self._alloc_kf_slot()
         if slot is None:
             return
-        self.m = mapping.process_new_keyframe(
-            self.m, frame, R, t, lm_ids, self.frame_id, ts, slot, self.ref_kf, cfg,
-            spawn_depth=cfg.sensor != Sensor.MONOCULAR, n_neighbors=cfg.kf_tri_neighbors,
-        )
-        if self.kf_count >= 2:
-            self.m = local_bundle_adjustment(self.m, slot, cfg, iters=cfg.local_ba_iters)
+        refined = self.kf_count >= 2      # local BA runs from the third keyframe on
+        self._insert_keyframe(frame, ts, self.frame_id, R, t, lm_ids, slot, n_tracked)
+        if refined:
             self._last_R = _host(self.m.kfs.R[slot])
             self._last_t = _host(self.m.kfs.t[slot])
         self._last_lm_ids = self.m.kfs.obs_lm[slot]
-        self.ref_kf = slot
-        self.kf_count += 1
-        self.last_kf_frame_id = self.frame_id
-        self.last_kf_tracked = n_tracked
         self._refresh_kf_meta_blocking()

@@ -4,6 +4,11 @@ Port of ``dialog_tpu/tracking.py``: motion-model projection search, the
 reference-keyframe fallback, pose optimization, the local-map search, a
 second pose optimization and outlier filtering, all in ``fused_track_step``.
 Projection searches go through ``matching.match_projected`` (kernel B).
+
+``fused_track_step_auto`` predicts the pose on the device from the two
+previous poses, and ``fused_track_multi`` chains B such steps against a frozen
+map: neither reads a pose or a count back to the host, so a whole batch is
+queued without a stall and the host pulls its ``packed`` rows once.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from .optim.pose_only import pose_optimization
 def predict_scale(dist, dmax, cfg: EngineConfig):
     """Predicted detection octave from camera distance (MapPoint::PredictScale)."""
     ratio = torch.clamp(dmax / torch.clamp(dist, min=1e-6), min=1e-6)
-    log_s = torch.log(torch.tensor(cfg.scale_factor, dtype=torch.float32, device=ratio.device))
+    log_s = torch.log(ops.scalar(cfg.scale_factor, torch.float32, ratio.device))
     lvl = torch.ceil(torch.log(ratio) / log_s - 1e-4)
     return torch.clamp(lvl, 0, cfg.n_levels - 1).to(torch.int32)
 
@@ -76,8 +81,10 @@ def _motion_match(m, last_lm_ids, frame: FrameArrays, R_pred, t_pred, cfg, radiu
     return lm_of_feat, torch.sum((lm_of_feat >= 0).to(torch.int32))
 
 
-def _ref_kf_match(m, ref_kf, frame: FrameArrays, cfg):
-    """Descriptor-only match against a keyframe's landmarks (TrackReferenceKeyFrame)."""
+def match_reference_kf(m: MapState, ref_kf, frame: FrameArrays, cfg: EngineConfig):
+    """Descriptor-only match against a keyframe's landmarks
+    (TrackReferenceKeyFrame; relocalization matches its candidates with it).
+    Returns (lm_of_feat i32[F], n_matches)."""
     F = frame.uv.shape[0]
     L = m.lms.xyz.shape[0]
     kf_desc = m.kfs.desc[ref_kf]
@@ -98,13 +105,15 @@ def _ref_kf_match(m, ref_kf, frame: FrameArrays, cfg):
     return lm_of_feat, torch.sum((lm_of_feat >= 0).to(torch.int32))
 
 
+_ref_kf_match = match_reference_kf   # the reference's private name for the same function
+
+
 def local_landmark_ids(m: MapState, ref_kf, cfg: EngineConfig):
     """Landmarks seen by the reference KF's covisibility neighborhood
     (Tracking::UpdateLocalMap). Returns i32[max_local_lms], L = fill."""
     L = m.lms.xyz.shape[0]
     neigh = (m.covis[ref_kf] > 0) & m.kfs.valid
-    neigh = neigh.clone()
-    neigh[ref_kf] = True
+    neigh = neigh | (torch.arange(neigh.shape[0], device=neigh.device) == ref_kf)
     obs = m.kfs.obs_lm
     sel = neigh[:, None] & m.kfs.feat_valid & (obs >= 0)
     mark = ops.scatter_add(
@@ -147,7 +156,7 @@ def gather_track_problem(m: MapState, frame: FrameArrays, lm_of_feat, cfg: Engin
     safe = torch.clamp(lm_of_feat, 0, L - 1).long()
     valid = (lm_of_feat >= 0) & frame.valid & m.lms.valid[safe]
     X = m.lms.xyz[safe]
-    base = torch.tensor(cfg.scale_factor, dtype=torch.float32, device=X.device)
+    base = ops.scalar(cfg.scale_factor, torch.float32, X.device)
     inv_sigma2 = torch.pow(base, -2.0 * frame.octave.to(torch.float32))
     return X, frame.uv, inv_sigma2, valid
 
@@ -168,9 +177,59 @@ def apply_track_counts(m: MapState, counts) -> MapState:
     return m._replace(lms=lms)
 
 
+def fused_track_step_auto(m: MapState, last_lm_ids, frame: FrameArrays, R_last, t_last, R_prev, t_prev,
+                          has_vel, ref_kf, cfg: EngineConfig, use_stereo: bool = False, local_ids=None):
+    """``fused_track_step`` with the constant-velocity prediction computed on
+    the device from the two previous poses (``has_vel`` a 0-d bool tensor),
+    and the fallback chosen on the device: the host chains frames without
+    reading a pose or a count."""
+    Rv = geo.orthogonalize(R_last @ R_prev.T)
+    tv = t_last - Rv @ t_prev
+    R_pred = torch.where(has_vel, Rv @ R_last, R_last)
+    t_pred = torch.where(has_vel, Rv @ t_last + tv, t_last)
+    return fused_track_step(m, last_lm_ids, frame, R_pred, t_pred, R_last, t_last, ref_kf, cfg,
+                            use_stereo=use_stereo, local_ids=local_ids, host_branch=False)
+
+
+def fused_track_multi(m: MapState, lm_ids0, frames: FrameArrays, R0, t0, R_prev0, t_prev0, has_vel0, ref_kf,
+                      cfg: EngineConfig, use_stereo: bool = False):
+    """Track B consecutive frames (a leading B on every leaf of ``frames``)
+    against a map frozen for the batch; mapping lags tracking by up to a
+    batch. The local candidate set depends only on (map, ref_kf) and is
+    computed once. Nothing is read back between frames.
+
+    Returns (R_last, t_last, R_prev, t_prev, lm_ids_last, packed f32[B, 26],
+    (vis_inc, found_inc) i32[L] summed over the batch)."""
+    L = m.lms.xyz.shape[0]
+    local_ids = local_landmark_ids(m, ref_kf, cfg)
+    lm_ids, R, t, Rp, tp, hv = lm_ids0, R0, t0, R_prev0, t_prev0, has_vel0
+    vis_acc = torch.zeros((L,), dtype=torch.int32, device=R0.device)
+    found_acc = torch.zeros_like(vis_acc)
+    true = torch.ones((), dtype=torch.bool, device=R0.device)
+    rows = []
+    for b in range(frames.uv.shape[0]):
+        frame = FrameArrays(*[x[b] for x in frames])
+        R2, t2, lm_ids, packed, (vis_inc, found_inc) = fused_track_step_auto(
+            m, lm_ids, frame, R, t, Rp, tp, hv, ref_kf, cfg, use_stereo=use_stereo, local_ids=local_ids)
+        R, t, Rp, tp, hv = R2, t2, R, t, true
+        vis_acc = vis_acc + vis_inc
+        found_acc = found_acc + found_inc
+        rows.append(packed)
+    return R, t, Rp, tp, lm_ids, torch.stack(rows), (vis_acc, found_acc)
+
+
 def fused_track_step(m: MapState, last_lm_ids, frame: FrameArrays, R_pred, t_pred,
-                     R_last, t_last, ref_kf, cfg: EngineConfig, use_stereo: bool = False):
+                     R_last, t_last, ref_kf, cfg: EngineConfig, use_stereo: bool = False,
+                     local_ids=None, host_branch: bool = True):
     """The whole per-frame tracking pipeline.
+
+    The wider search and the reference-keyframe match run only when the
+    motion-model search found fewer than 20 matches. With ``host_branch`` the
+    host reads that count and branches (one stall per frame, no wasted
+    work); without it both are always computed and the result is selected on
+    the device, the same values with no read (the batched and pipelined
+    entries take this form). ``local_ids`` may carry ``local_landmark_ids``
+    of (m, ref_kf) computed by the caller.
 
     With ``use_stereo`` both pose optimizations add the uR row of features
     that carry a right-x, and every row of the frame is gated at
@@ -183,23 +242,25 @@ def fused_track_step(m: MapState, last_lm_ids, frame: FrameArrays, R_pred, t_pre
     stereo = dict(u_right=frame.u_right, bf=cfg.bf, use_stereo=use_stereo)
     lm_ids, n_mm = _motion_match(m, last_lm_ids, frame, R_pred, t_pred, cfg, cfg.motion_search_radius)
     R0, t0 = R_pred, t_pred
-    # host branch on the match count (the reference's lax.cond): one sync
-    if int(n_mm) < 20:
+    # the reference's lax.cond on the match count: a host read, or a device select
+    if not host_branch or int(n_mm) < 20:
         lm_b, n_b = _motion_match(m, last_lm_ids, frame, R_pred, t_pred, cfg,
                                   2.0 * cfg.motion_search_radius)
-        lm_c, n_c = _ref_kf_match(m, ref_kf, frame, cfg)
+        lm_c, n_c = match_reference_kf(m, ref_kf, frame, cfg)
         use_b = n_b >= 20
-        lm_ids = torch.where(use_b, lm_b, lm_c)
-        n_mm = torch.where(use_b, n_b, n_c)
-        R0 = torch.where(use_b, R_pred, R_last)
-        t0 = torch.where(use_b, t_pred, t_last)
+        happy = n_mm >= 20      # all False under the host's branch
+        lm_ids = torch.where(happy, lm_ids, torch.where(use_b, lm_b, lm_c))
+        R0 = torch.where(happy, R_pred, torch.where(use_b, R_pred, R_last))
+        t0 = torch.where(happy, t_pred, torch.where(use_b, t_pred, t_last))
+        n_mm = torch.where(happy, n_mm, torch.where(use_b, n_b, n_c))
 
     X, uv, inv_s2, valid = gather_track_problem(m, frame, lm_ids, cfg)
     res = pose_optimization(R0, t0, X, uv, inv_s2, valid, cfg.fx, cfg.fy, cfg.cx, cfg.cy,
                             chi2_th=chi2, rounds=cfg.pose_opt_rounds, iters=cfg.pose_opt_iters, **stereo)
     lm_ids = torch.where(res.inlier, lm_ids, INVALID_ID)
 
-    local_ids = local_landmark_ids(m, ref_kf, cfg)
+    if local_ids is None:
+        local_ids = local_landmark_ids(m, ref_kf, cfg)
     lm_ids, _, in_frustum = track_local_map_match(m, local_ids, frame, lm_ids, res.R, res.t, cfg)
     X, uv, inv_s2, valid = gather_track_problem(m, frame, lm_ids, cfg)
     res2 = pose_optimization(res.R, res.t, X, uv, inv_s2, valid, cfg.fx, cfg.fy, cfg.cx, cfg.cy,

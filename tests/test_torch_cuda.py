@@ -19,6 +19,16 @@ from run to run, and a 5-iteration ``solve_ba`` within the reference's
 stereo variant, with a right-x on half the observations. Both variants also
 run over P, O and C off the block sizes, with frozen cameras, dead
 landmarks and repeated cameras, and with the camera index given or built.
+
+The batched paths: kernel A over a batch of images in one launch, bit for
+bit against its plain version and against the one-image launch; the batched
+frontends (``extract_features_batch``, ``extract_and_match_stereo_batch``)
+bit for bit against the per-image entries on the card; the pinned,
+event-guarded pull of the pipelined engine against a blocking copy; and
+``Engine.track_batch`` on the card against the same engine on the CPU
+(synthetic observations: the same states frame by frame and positions within
+5e-3 of the sweep's ~2 m, which is what f32 sums taken in another order
+leave after 48 frames of pose optimization and five local BAs).
 """
 
 import numpy as np
@@ -497,3 +507,137 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     a = torch.zeros((16, 8), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         hamming.hamming_best2(a, a, torch.ones(16, device=cuda), torch.ones(16, dtype=torch.bool, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# the batched paths
+# ---------------------------------------------------------------------------
+
+KITTI_SMALL = dict(width=1241, height=376, n_features=2000, max_features=2048)
+
+
+def _pyramid_stack(rng, B, cfg, dev):
+    imgs = torch.from_numpy(rng.uniform(0, 255, (B, cfg.height, cfg.width)).astype(np.float32)).to(dev)
+    # blocks of flat colour with noise on top: corners of every score, not only noise
+    imgs = (imgs * 0.2 + 200.0 * (torch.arange(cfg.width, device=dev) // 37 % 2)
+            * (torch.arange(cfg.height, device=dev)[:, None] // 29 % 2))
+    return [p.contiguous() for p in fe.build_pyramid(imgs, cfg)]
+
+
+@pytest.mark.parametrize("B", [1, 2, 8, 16])
+@pytest.mark.parametrize("size", ["640x480", "1241x376"])
+def test_fast_batch_bit_exact_in_one_launch(cuda, B, size):
+    cfg = CFG if size == "640x480" else CFG.replace(**KITTI_SMALL)
+    pyr = _pyramid_stack(np.random.default_rng(B), B, cfg, cuda)
+    th = (float(cfg.min_th_fast), float(cfg.ini_th_fast), fe.BORDER)
+    before = dict(common.launches)
+    got = fast.fast_nms_rank_levels_batch(pyr, *th, pad_to=fe.CELL)
+    assert common.launches["fast_nms_rank_batch"] == before["fast_nms_rank_batch"] + 1
+    assert common.launches["fast_nms_rank"] == before["fast_nms_rank"]
+    want = fast.fast_nms_rank_levels_batch_plain(pyr, *th, pad_to=fe.CELL)
+    torch.cuda.synchronize()
+    assert len(got) == cfg.n_levels
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+    assert int((got[0] > 1000).sum()) > 100 * B
+    # image by image through the one-image launch: the same bits
+    for b in range(B):
+        single = fast.fast_nms_rank_levels([p[b] for p in pyr], *th, pad_to=fe.CELL)
+        assert all(torch.equal(s, g[b]) for s, g in zip(single, got))
+
+
+def test_fast_batch_odd_sizes_and_errors(cuda):
+    rng = np.random.default_rng(3)
+    odd = [torch.from_numpy(rng.uniform(0, 255, (3, h, w)).astype(np.float32)).to(cuda)
+           for h, w in [(61, 63), (62, 14), (15, 125), (1, 1), (7, 300), (129, 65), (40, 39)]]
+    for th, pad in [((7.0, 20.0, 19), 1), ((2.0, 9.0, 4), 16), ((5.0, 12.0, 1), 5)]:
+        got = fast.fast_nms_rank_levels_batch(odd, *th, pad_to=pad)
+        want = fast.fast_nms_rank_levels_batch_plain(odd, *th, pad_to=pad)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError):
+        fast.fast_nms_rank_levels_batch([odd[0], odd[1][:2]], 7.0, 20.0, 19)
+    with pytest.raises(ValueError):
+        fast.fast_nms_rank_levels_batch([odd[0][0]], 7.0, 20.0, 19)
+    with pytest.raises(ValueError):
+        fast.fast_nms_rank_levels_batch([odd[0].transpose(1, 2)], 7.0, 20.0, 19)
+
+
+@pytest.mark.parametrize("size", ["640x480", "1241x376"])
+def test_batched_frontend_equals_per_image_on_the_card(cuda, size):
+    cfg = CFG if size == "640x480" else CFG.replace(**KITTI_SMALL)
+    scene = synth.make_scene(seed=3, n_points=2500, n_frames=168, cfg=cfg)
+    imgs = torch.from_numpy(np.stack([synth.render_image(scene, i) for i in range(4)])).to(cuda)
+    before = dict(common.launches)
+    batch = fe.extract_features_batch(imgs, cfg)
+    assert common.launches["fast_nms_rank_batch"] == before["fast_nms_rank_batch"] + 1
+    assert common.launches["fast_nms_rank"] == before["fast_nms_rank"]
+    for b in range(imgs.shape[0]):
+        one = fe.extract_features(imgs[b], cfg)
+        for name in one._fields:
+            assert torch.equal(getattr(one, name), getattr(batch, name)[b]), (b, name)
+    assert int(batch.valid.sum()) > 0.8 * cfg.n_features * imgs.shape[0]
+
+
+def test_batched_stereo_frontend_equals_per_pair_on_the_card(cuda):
+    from dialog_tpu_torch import stereo
+    from dialog_tpu_torch.config import KITTI00
+
+    cfg = KITTI00.replace(max_keyframes=16, max_landmarks=4096)
+    scene = synth.make_scene(seed=7, n_points=6000, n_frames=168, cfg=cfg)
+    scene_r = scene._replace(t=scene.t - np.array([cfg.baseline, 0.0, 0.0], np.float32))
+    left = torch.from_numpy(np.stack([synth.render_image(scene, i) for i in range(3)])).to(cuda)
+    right = torch.from_numpy(np.stack([synth.render_image(scene_r, i) for i in range(3)])).to(cuda)
+    before = dict(common.launches)
+    batch = stereo.extract_and_match_stereo_batch(left, right, cfg)
+    assert common.launches["fast_nms_rank_batch"] == before["fast_nms_rank_batch"] + 1
+    for b in range(3):
+        one = stereo.stereo_match_frames(fe.extract_features(left[b], cfg), fe.extract_features(right[b], cfg), cfg,
+                                         img_left=left[b], img_right=right[b])
+        for name in one._fields:
+            assert torch.equal(getattr(one, name), getattr(batch, name)[b]), (b, name)
+    assert int((batch.depth > 0).sum()) > 3 * 500
+
+
+def test_pinned_pull_returns_the_blocking_copy(cuda):
+    from dialog_tpu_torch.containers import pack_map_meta
+    from dialog_tpu_torch.system import Engine
+
+    eng = Engine(CFG.replace(max_keyframes=16, max_landmarks=1024), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for _ in range(5):
+        # a long queue of work ahead of the copy: the bytes are right only after the event
+        x = torch.randn((2048, 2048), device=cuda, generator=gen)
+        for _ in range(20):
+            x = x @ x * 1e-3
+        packed = x[:8, :26].contiguous()
+        pull = eng._start_pull(packed)
+        assert pull[0].is_pinned() and pull[1] is not None
+        got = Engine._finish_pull(pull)
+        want = torch.cat([packed.reshape(-1), pack_map_meta(eng.m)]).cpu().numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+def test_track_batch_on_the_card_follows_the_cpu_engine(cuda):
+    from dialog_tpu_torch.containers import FrameArrays
+    from dialog_tpu_torch.system import OK, Engine
+
+    cfg = EngineConfig(max_features=512, max_keyframes=64, max_landmarks=8192, max_local_lms=1024,
+                       max_frames_between_kf=8, vocab_words=256)
+    N, B = 48, 4
+    scene = synth.make_scene(seed=51, n_points=700, n_frames=N, cfg=cfg)
+    frames = [synth.observe(scene, i, noise_px=0.4, device="cpu")[0] for i in range(N)]
+    engines = {}
+    for dev in ("cpu", cuda):
+        eng = Engine(cfg, device=dev)
+        # both engines draw the same two-view minimal sets
+        eng._gen = torch.Generator(device="cpu").manual_seed(cfg.n_features)
+        for i in range(0, N, B):
+            batch = FrameArrays(*[torch.stack(x).to(dev) for x in zip(*frames[i : i + B])])
+            eng.track_batch(batch, [j / 30.0 for j in range(i, i + B)])
+        eng.flush()
+        engines[str(dev)] = eng
+    a, b = engines["cpu"], engines[str(cuda)]
+    assert [r.state for r in a.trajectory] == [r.state for r in b.trajectory]
+    assert len(b.trajectory) == N and b.state == OK and a.kf_count == b.kf_count
+    ok = np.array([r.state == OK for r in a.trajectory])
+    assert float(np.abs(a.positions[ok] - b.positions[ok]).max()) < 5e-3

@@ -3,7 +3,8 @@
 A child interpreter in which ``import jax`` and ``import dialog_tpu`` fail
 imports ``dialog_tpu_torch``, every one of its submodules and
 ``chip_smoke``, then extracts features from a 160x120 image with the port's
-plain frontend. A static check finds no JAX import and no reference to the
+plain frontend (one image and a batch of two), trains and queries a small
+vocabulary and solves a PnP problem. A static check finds no JAX import and no reference to the
 JAX package in the port's sources or in ``chip_smoke.py``.
 """
 
@@ -36,6 +37,19 @@ cfg = EngineConfig(width=160, height=120, fx=130.0, fy=130.0, cx=80.0, cy=60.0,
                    n_features=150, max_features=160, n_levels=3)
 img = np.random.default_rng(0).uniform(0, 255, (120, 160)).astype(np.float32)
 fr = extract_features(torch.from_numpy(img), cfg)
+from dialog_tpu_torch import pnp, vocab
+from dialog_tpu_torch.frontend import extract_features_batch
+fb = extract_features_batch(torch.from_numpy(np.stack([img, img[::-1].copy()])), cfg)
+assert torch.equal(fb.desc[0], fr.desc) and fb.desc.shape == (2, 160, 8)
+voc = vocab.train_vocab(fr.desc, fr.valid, fr.desc[:16].clone(), n_words=16, iters=2)
+assert int(vocab.quantize(voc, fr.desc, fr.valid).max()) <= 16
+assert abs(float(vocab.bow_vector(voc, fr.desc, fr.valid).sum()) - 1.0) < 1e-5
+assert {"dialog_tpu_torch.vocab", "dialog_tpu_torch.pnp"} <= set(names)
+X = torch.rand(40, 3) + torch.tensor([0.0, 0.0, 4.0])
+uv = torch.stack([130.0 * X[:, 0] / X[:, 2] + 80.0, 130.0 * X[:, 1] / X[:, 2] + 60.0], -1)
+ok = torch.ones(40, dtype=torch.bool)
+res = pnp.solve_pnp_ransac(X, uv, ok, 130.0, 130.0, 80.0, 60.0, pnp.draw_pnp_sets(ok, 32, torch.Generator().manual_seed(0)))
+assert bool(res.success)
 assert "jax" not in [m for m in sys.modules if sys.modules[m] is not None]
 print(len(names), int(fr.valid.sum()), tuple(fr.desc.shape))
 """
@@ -45,7 +59,7 @@ def test_port_imports_and_runs_without_jax():
     out = subprocess.run([sys.executable, "-c", CHILD], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, n_valid, desc_shape = out.stdout.split(maxsplit=2)
-    assert int(n_modules) >= 20
+    assert int(n_modules) >= 22
     assert int(n_valid) > 50
     assert desc_shape.strip() == "(160, 8)"
 
