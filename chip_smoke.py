@@ -40,14 +40,31 @@ Needs one CUDA card and nvcc; exits non-zero without them. It
    tracked one), with the seconds of one vocabulary training, one
    ``solve_pnp_ransac`` and one relocalization; and 24 frames through
    ``Engine.track_features_async``;
-8. checks kernel A (FAST rank: level by level and all levels of the mono and
+8. checks loop closing. ``solve_pose_graph`` on the card against the CPU on
+   a seeded Sim3 graph at the mono capacities (K = 256); then the reference
+   loop test's orbit (``profile_main_path.loop_scene``, 260 synthetic feature
+   frames, its own configuration ``loop_config``) through
+   ``Engine.track_features`` (``loop``), and on the same orbit at half its
+   speed (520 frames: the reference's pipelined and batched engines lose the
+   orbit at full speed) through ``Engine.track_features_async``
+   (``loop_async``) and as 8 frames one by one and batches of 8 through
+   ``Engine.track_batch`` (``loop_batch``), each under the test's gates: a
+   loop closed between keyframes more than 20 insertions apart, OK share >
+   0.9, ATE < 5% of the span; kernel B inside every guided Sim3 match; one
+   host pull per batch. Then the same 260 frames per frame at the TUM-class
+   configuration at full width (``loop_tum``: 1000 features, K = 256),
+   gated on a closure only (the reference's own closure there raises the ATE
+   past the test's gate, ROADMAP D13). The first closure of ``loop`` and of
+   ``loop_tum`` is then replayed on a copy of its map and each step timed
+   (``loop_probe``);
+9. checks kernel A (FAST rank: level by level and all levels of the mono and
    the stereo pyramid in one launch, odd sizes, a 32-level table; over a batch:
    one real batch of each batched path against the plain version and against
    one-image launches, odd sizes) and kernel
    B (gated Hamming best/second, and the one-pass mutual match against its
    two-call plain form, with and without each gate, with ties and empty
    sides) against their plain PyTorch versions on the card, bit for bit;
-9. times each kernel at its path's shapes: the device's own time per call
+10. times each kernel at its path's shapes: the device's own time per call
    under ``torch.profiler`` (the kernel's launches by name, kernel C's two
    stages apart), the pace of back-to-back wrapper calls between two CUDA
    events (host work included), the plain version likewise, and the least
@@ -72,8 +89,10 @@ import time
 import numpy as np
 import torch
 
-from dialog_tpu_torch.profile_main_path import (BATCH, FPS_FIRST, MONO_BATCH_FRAMES, N_FRAMES, STEREO_BATCH_FRAMES,
-                                                WORKLOADS, extract_batch, profiled, track_batches, track_frames)
+from dialog_tpu_torch.profile_main_path import (BATCH, FPS_FIRST, LOOP_BATCH_PERIOD, LOOP_DESC_FLIPS, LOOP_FRAMES,
+                                                LOOP_NOISE_PX, LOOP_PERIOD, MONO_BATCH_FRAMES, N_FRAMES,
+                                                STEREO_BATCH_FRAMES, WORKLOADS, extract_batch, loop_config, loop_scene,
+                                                loop_tum_config, profiled, track_batches, track_frames)
 
 # tolerances: A and B are integer/min-max computations and must be bit-exact;
 # C sums in another order than the plain version (f32)
@@ -108,6 +127,18 @@ BATCH_OK_SHARE = 0.9    # OK share after the first OK frame, outside the blanked
 # Positions in map units (a monocular map's median depth is 1 at initialization), rotations in degrees.
 RELOC_POS_TOL = 0.03
 RELOC_ROT_TOL_DEG = 1.0
+# the loop phase: the reference loop test's gates (tests/test_loopclosing.py)
+LOOP_MIN_GAP = 20       # the first closure joins keyframes more than this many insertions apart
+LOOP_OK_SHARE = 0.9     # over all frames
+LOOP_ATE_SPAN = 0.05    # ATE (similarity-aligned) below this share of the trajectory's span
+LOOP_REPS = 5           # timed replays of each loop-closing step (median)
+LOOP_PROBE_SEED = 3     # the replayed Sim3 RANSAC's draws
+LOOP_PATHS = ("loop", "loop_async", "loop_batch", "loop_tum")
+# the seeded pose graph at the mono capacities (K keyframe slots); an f32 solve on the CPU ends within 5e-6 of a
+# float64 one on it
+POSE_GRAPH_K = 256
+POSE_GRAPH_ITERS = 25
+POSE_GRAPH_TOL = 1e-4
 
 # published peaks of one H100 SXM at its full 700 W: HBM3, and f32 outside the tensor cores
 # (integer and min/max operations are counted at the same rate)
@@ -737,6 +768,337 @@ def reloc_probe(run, dev, smi) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# loop closing
+# ---------------------------------------------------------------------------
+
+
+def _clone(x):
+    """A deep copy of a tensor or a (nested) NamedTuple of tensors."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if hasattr(x, "_fields"):
+        return type(x)(*[_clone(y) for y in x])
+    return x
+
+
+def _to(x, dev):
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if hasattr(x, "_fields"):
+        return type(x)(*[_to(y, dev) for y in x])
+    return x
+
+
+def _timed(fn):
+    """(fn's result, its wall seconds between two device syncs)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def check_pose_graph(dev, smi) -> dict:
+    """``solve_pose_graph`` on the card against the CPU on the seeded Sim3
+    graph at the mono capacities (``make_pose_graph``, K = POSE_GRAPH_K: a
+    1,792 x 1,792 system), POSE_GRAPH_ITERS iterations from the same start:
+    s, R and t within POSE_GRAPH_TOL, both costs down by at least 1e6. Also
+    warms the card's solvers (the dense solve, the batched 3x3 SVD of the
+    Sim3 RANSAC) before any timed loop window, and times one solve at K."""
+    from dialog_tpu_torch import sim3
+    from dialog_tpu_torch.optim.pose_graph import _system, solve_pose_graph
+    from dialog_tpu_torch.optim.synth_problem import make_pose_graph
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    X = torch.rand(200, 3, device=dev, generator=gen)
+    ok = torch.ones(200, dtype=torch.bool, device=dev)
+    sim3.solve_sim3_ransac(X, 2.0 * X + 1.0, ok, sim3.draw_sim3_sets(ok, 128, gen))
+    prob = make_pose_graph(seed=0, K=POSE_GRAPH_K, device=dev)
+    cpu = make_pose_graph(seed=0, K=POSE_GRAPH_K, device="cpu")
+    cost0 = float(_system(cpu, cpu.s, cpu.R, cpu.t)[0])
+    got = solve_pose_graph(prob, iters=POSE_GRAPH_ITERS)
+    want, cpu_s = _timed(lambda: solve_pose_graph(cpu, iters=POSE_GRAPH_ITERS))
+    _, card_s = _timed(lambda: solve_pose_graph(prob, iters=POSE_GRAPH_ITERS))
+    _, card_15_s = _timed(lambda: solve_pose_graph(prob, iters=15))
+    diff = {k: float((g.cpu() - w).abs().max()) for k, g, w in zip("sRt", got[:3], want[:3])}
+    out = dict(K=POSE_GRAPH_K, iters=POSE_GRAPH_ITERS, max_abs_diff=diff, cost_start=cost0, cost_card=float(got[3]),
+               cost_cpu=float(want[3]), solve_card_s=card_s, solve_card_15_iters_s=card_15_s, solve_cpu_s=cpu_s)
+    say("pose graph check (seeded, card against CPU): " + json.dumps(out) + f" on {smi}")
+    if not all(v < POSE_GRAPH_TOL for v in diff.values()):
+        fail(f"solve_pose_graph on the card differs from the CPU by {diff} (bound {POSE_GRAPH_TOL})")
+    if not (float(got[3]) < 1e-6 * cost0 and float(want[3]) < 1e-6 * cost0):
+        fail(f"solve_pose_graph did not converge: cost {cost0} -> card {float(got[3])}, cpu {float(want[3])}")
+    return out
+
+
+def run_loop_path(name, dev) -> dict:
+    """The loop workload: 1.3 laps of the orbit (``profile_main_path.loop_scene``)
+    in synthetic feature frames. ``loop``: the reference loop test's 260
+    frames (a lap of LOOP_PERIOD) under ``loop_config``, every frame through
+    ``Engine.track_features`` (detection at each keyframe, pulled and
+    evaluated at the next). ``loop_tum``: the same frames per frame under
+    ``loop_tum_config``, the TUM-class configuration at full width (1000
+    features, K = 256). ``loop_async`` and ``loop_batch``: a lap of
+    LOOP_BATCH_PERIOD (520 frames) under ``loop_config``. ``loop_async``:
+    every frame through ``Engine.track_features_async``, ``flush`` (the
+    detection runs where the pipeline resolves the keyframe);
+    ``loop_batch``: 8 frames one by one, then batches of BATCH through
+    ``Engine.track_batch`` (the detection dispatched at the batch's keyframe
+    rides the next batch's pull and is evaluated at its resolve), ``flush``. Launch counts are reset just
+    before and read just after. Counted on the way: host pulls, batches,
+    synchronous detections, evaluations, guided matches and the kernel B
+    launches inside them; each frame's (or batch's) wall time between two
+    device syncs, less the harness's own work inside it; each
+    ``_close_loop_from`` with candidates: its wall time, and at the first
+    closure the similarity-aligned ATE of the frames so far just before and
+    just after it, and a copy of the map and the detection it started from
+    (``loop_probe`` replays it)."""
+    from dialog_tpu_torch import loopclosing
+    from dialog_tpu_torch.containers import FrameArrays
+    from dialog_tpu_torch.datasets import synth
+    from dialog_tpu_torch.kernels import common
+    from dialog_tpu_torch.system import Engine
+
+    cfg = loop_tum_config() if name == "loop_tum" else loop_config()
+    period = LOOP_BATCH_PERIOD if name in ("loop_async", "loop_batch") else LOOP_PERIOD
+    scene = loop_scene(cfg, period)
+    frames = [synth.observe(scene, i, noise_px=LOOP_NOISE_PX, desc_flips=LOOP_DESC_FLIPS, device=dev)[0]
+              for i in range(LOOP_FRAMES * period // LOOP_PERIOD)]
+    eng = Engine(cfg, device=dev)
+    counts = {"pulls": 0, "batches": 0, "detect_calls": 0, "evaluate_calls": 0, "guided_matches": 0,
+              "guided_mutual_launches": 0}
+    _counted(eng, "_start_pull", counts, "pulls")
+    _counted(eng._loop, "detect", counts, "detect_calls")
+    _counted(eng._loop, "evaluate", counts, "evaluate_calls")
+    closures, first = [], {}
+    guided = loopclosing._guided_sim3_matches
+
+    def counted_guided(*args):
+        n0 = common.launches["hamming_mutual"]
+        out = guided(*args)
+        counts["guided_matches"] += 1
+        counts["guided_mutual_launches"] += common.launches["hamming_mutual"] - n0
+        return out
+
+    close = eng._close_loop_from
+    walls = []
+    harness_s = [0.0]   # the harness's own seconds inside the current frame's window
+
+    def harness(fn):
+        _, sec = _timed(fn)
+        harness_s[0] += sec
+
+    def timed_close(det_kf, cands):
+        n0 = len(eng._loop.closed_loops)
+        if cands and n0 == 0:
+            harness(lambda: first.update(
+                wall_index=len(walls), det_kf=det_kf, cands=list(cands), det_seq=eng._loop.last_eval_det_seq,
+                m=_clone(eng.m), bow_db=_clone(eng._bow_db), vocab=eng._vocab, ref_kf=eng.ref_kf,
+                ate_before_m=path_ate(eng, scene, True) if len(eng.trajectory) > 3 else None))
+        _, sec = _timed(lambda: close(det_kf, cands))
+        if cands:
+            done = len(eng._loop.closed_loops) > n0
+            closures.append(dict(wall_index=len(walls), records=len(eng.trajectory), candidates=len(cands),
+                                 closed=done, seconds=sec))
+            if done and n0 == 0:
+                harness(lambda: first.update(records=len(eng.trajectory), seconds=sec,
+                                             ate_after_m=path_ate(eng, scene, True)))
+
+    def step(fn):
+        harness_s[0] = 0.0
+        _, sec = _timed(fn)
+        walls.append(sec - harness_s[0])
+
+    eng._close_loop_from = timed_close
+    loopclosing._guided_sim3_matches = counted_guided
+    try:
+        common.reset_launch_counts()
+        n_single = 8 if name == "loop_batch" else len(frames)
+        track = eng.track_features_async if name == "loop_async" else eng.track_features
+        for i in range(n_single):
+            step(lambda: track(frames[i], float(i) / 30.0))
+        for i in range(n_single, len(frames) - BATCH + 1, BATCH):
+            batch = FrameArrays(*[torch.stack(x) for x in zip(*frames[i : i + BATCH])])
+            step(lambda: eng.track_batch(batch, [float(i + j) / 30.0 for j in range(BATCH)]))
+            counts["batches"] += 1
+        if name in ("loop_async", "loop_batch"):
+            step(eng.flush)
+        launches = dict(common.launches)
+    finally:
+        loopclosing._guided_sim3_matches = guided
+    n_frames = n_single + counts["batches"] * BATCH
+    return dict(scene=scene, eng=eng, launches=launches, counts=counts, closures=closures, first=first,
+                walls=walls, n_frames=n_frames, n_single=n_single)
+
+
+def check_loop_path(name, run, smi) -> dict:
+    """The reference loop test's gates (``tests/test_loopclosing.py``) on
+    the run: at least one closed loop, the first between keyframes more than
+    LOOP_MIN_GAP insertions apart; OK share above LOOP_OK_SHARE over all
+    frames; a finite ATE (similarity-aligned, OK frames from the first one)
+    below LOOP_ATE_SPAN of the trajectory's span. ``loop_tum`` is held to
+    the closure alone (ROADMAP D13), with its ATE finite. Also: a record per
+    frame in order, kernel B (``hamming_mutual``) launched inside every
+    guided match and at least once per guided match over the path, kernel C
+    at least once. Batched: one host pull per batch (the detection rides
+    it), no synchronous detection, at least one evaluation. Per frame and
+    pipelined: synchronous detections."""
+    from dialog_tpu_torch.system import OK
+
+    eng, counts, launches = run["eng"], run["counts"], run["launches"]
+    states = [r.state for r in eng.trajectory]
+    if [r.frame_id for r in eng.trajectory] != list(range(run["n_frames"])):
+        fail(f"{name}: {len(states)} records for {run['n_frames']} frames, or out of frame order")
+    ok_share = float(np.mean([s == OK for s in states]))
+    if OK not in states:
+        fail(f"{name}: the engine never initialized")
+    ate = path_ate(eng, run["scene"], True)
+    scene = run["scene"]
+    gt = np.stack([-scene.R[r.frame_id].T @ scene.t[r.frame_id] for r in eng.trajectory if r.state == OK])
+    span = float(np.linalg.norm(gt.max(0) - gt.min(0)))
+    seq = eng.m.kfs.seq.cpu().numpy()
+    pairs = [[int(a), int(b), int(seq[a]), int(seq[b])] for a, b in eng._loop.closed_loops]
+    first = {k: v for k, v in run["first"].items() if k not in ("m", "bow_db", "vocab")}
+    walls = np.array(run["walls"])
+    around = None
+    if "records" in first:
+        # the walls are per frame, and in loop_batch per batch after the first n_single frames
+        around = dict(per=f"frame up to {run['n_single']}, then batch of {BATCH}" if name == "loop_batch" else "frame",
+                      at_closure_s=float(walls[first["wall_index"]]), at_closure_index=first["wall_index"],
+                      median_s=float(np.median(walls)), worst_s=float(walls.max()), worst_index=int(walls.argmax()))
+    out = dict(state=eng.state, frames=len(states), kf_count=eng.kf_count, ok_share=ok_share, ate_m=ate, span_m=span,
+               ate_gate_m=LOOP_ATE_SPAN * span, closed_slots_and_seqs=pairs, first_closure=first,
+               closures_tried=run["closures"], wall_at_closure=around, launches=launches, **counts)
+    say(f"{name} path: " + json.dumps(out) + f" on {smi}")
+    if not pairs:
+        fail(f"{name}: no loop was closed")
+    if not pairs[0][2] - pairs[0][3] > LOOP_MIN_GAP:
+        fail(f"{name}: the first closure joins keyframes {pairs[0][2]} and {pairs[0][3]}, not more than "
+             f"{LOOP_MIN_GAP} insertions apart")
+    if name != "loop_tum" and not ok_share > LOOP_OK_SHARE:
+        fail(f"{name}: OK share {ok_share} <= {LOOP_OK_SHARE}")
+    if not (np.isfinite(ate) and (name == "loop_tum" or ate < LOOP_ATE_SPAN * span)):
+        fail(f"{name}: ATE {ate} m not below {LOOP_ATE_SPAN} x the span {span} m")
+    n_guided = counts["guided_matches"]
+    if counts["guided_mutual_launches"] < n_guided or launches["hamming_mutual"] < n_guided:
+        fail(f"{name}: {counts['guided_matches']} guided matches launched kernel B {counts['guided_mutual_launches']} "
+             f"times ({launches['hamming_mutual']} on the path)")
+    if counts["guided_matches"] < 1 or launches["schur_reduce"] < 1:
+        fail(f"{name}: no guided match ({counts['guided_matches']}) or no kernel C launch ({launches['schur_reduce']})")
+    if name == "loop_batch":
+        if not 1 <= counts["pulls"] <= counts["batches"]:
+            fail(f"{name}: {counts['pulls']} host pulls for {counts['batches']} batches")
+        if counts["detect_calls"] or counts["evaluate_calls"] < 1:
+            fail(f"{name}: {counts['detect_calls']} synchronous detections, {counts['evaluate_calls']} evaluations")
+    elif counts["detect_calls"] < 1:
+        fail(f"{name}: no synchronous detection")
+    return out
+
+
+def loop_probe(name, run, dev, smi) -> dict:
+    """Replays, on a copy of the map as it stood, the detection and the first
+    closure of a loop run, and times each step at its own shapes (device
+    synced around each; the median of LOOP_REPS calls after one warm call):
+    one detection (``dispatch``, the host copy of its vector and neighbour
+    matrix, ``evaluate``), one ``compute_sim3`` and within it one
+    ``solve_sim3_ransac``, one ``refine_sim3_reproj`` and one guided match,
+    one ``solve_pose_graph`` at the map's K, one ``correct``, one whole
+    ``_close_loop_from``; counts the stream syncs of that whole closure and
+    of its ``compute_sim3`` (``torch.cuda.set_sync_debug_mode("warn")``, as
+    ``tools/sync_probe.py`` counts them). The guided match count must be
+    equal on the card and on a CPU copy of the map."""
+    import copy
+    import warnings
+
+    from dialog_tpu_torch import loopclosing
+    from dialog_tpu_torch.loopclosing import LoopCloser
+    from dialog_tpu_torch.system import Engine
+
+    eng, first = run["eng"], run["first"]
+    cfg = eng.cfg
+    m, det_kf = first["m"], first["det_kf"]
+    cand = eng._loop.closed_loops[0][1]
+
+    def median_s(fn):
+        fn()
+        return float(np.median([_timed(fn)[1] for _ in range(LOOP_REPS)]))
+
+    def detection():
+        lc = LoopCloser(cfg)
+        lc.dispatch(m, first["bow_db"], first["vocab"], det_kf, stamp=10**6)
+        kf, vec, neigh, stamp = lc.take_pending()
+        return lc.evaluate(kf, vec.cpu().numpy(), neigh.cpu().numpy(), stamp=stamp)
+
+    calls = {}
+    names = ("solve_sim3_ransac", "refine_sim3_reproj", "_guided_sim3_matches", "solve_pose_graph")
+    inner = {k: getattr(loopclosing, k) for k in names}
+
+    def recorder(k):
+        def fn(*args, **kwargs):
+            calls[k] = (args, kwargs)
+            return inner[k](*args, **kwargs)
+        return fn
+
+    gen = torch.Generator(device=dev).manual_seed(LOOP_PROBE_SEED)
+    for k in names:
+        setattr(loopclosing, k, recorder(k))
+    try:
+        lc = LoopCloser(cfg)
+        found = lc.compute_sim3(m, det_kf, cand, generator=gen)
+        if found is None:
+            fail(f"{name} probe: compute_sim3 of keyframes {det_kf} and {cand} failed on the replay")
+        lc.correct(_clone(m), det_kf, found, cfg)
+    finally:
+        for k in names:
+            setattr(loopclosing, k, inner[k])
+    if set(calls) != set(names):
+        fail(f"{name} probe: the replay made only the calls {sorted(calls)}")
+    out = {"keyframes": [det_kf, cand], "K": cfg.max_keyframes, "sim3_iters": cfg.sim3_ransac_iters,
+           "matches": int(calls["solve_sim3_ransac"][0][2].sum()), "n_inliers": found.n_inliers,
+           "detection_s": median_s(detection),
+           "compute_sim3_s": median_s(lambda: LoopCloser(cfg).compute_sim3(m, det_kf, cand, generator=gen)),
+           "correct_s": median_s(lambda: LoopCloser(cfg).correct(_clone(m), det_kf, found, cfg))}
+    for k in names:
+        args, kwargs = calls[k]
+        out[k.strip("_") + "_s"] = median_s(lambda: inner[k](*args, **kwargs))
+    args, kwargs = calls["_guided_sim3_matches"]
+    n_card = int(inner["_guided_sim3_matches"](*args, **kwargs))
+    n_cpu = int(inner["_guided_sim3_matches"](*[_to(a, "cpu") for a in args], **kwargs))
+    out.update(guided_count_card=n_card, guided_count_cpu=n_cpu)
+
+    def whole():
+        e = copy.copy(eng)
+        e._loop = copy.deepcopy(eng._loop)
+        e._loop.last_eval_det_seq = first["det_seq"]
+        e.m, e.ref_kf = _clone(m), first["ref_kf"]
+        Engine._close_loop_from(e, det_kf, first["cands"])
+        return e
+
+    out["close_loop_from_s"] = median_s(whole)
+
+    def stream_syncs(fn):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                res = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return res, sum(1 for w in caught if "synchroniz" in str(w.message))
+
+    e, out["close_loop_from_stream_syncs"] = stream_syncs(whole)
+    _, out["compute_sim3_stream_syncs"] = stream_syncs(
+        lambda: LoopCloser(cfg).compute_sim3(m, det_kf, cand, generator=gen))
+    if len(e._loop.closed_loops) <= len(eng._loop.closed_loops):
+        fail(f"{name} probe: the replayed _close_loop_from did not close the loop")
+    say(f"{name} probe: " + json.dumps(out) + f" on {smi}")
+    if n_card != n_cpu:
+        fail(f"{name} probe: the guided match counts {n_card} on the card, {n_cpu} on the CPU")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # kernel C
 # ---------------------------------------------------------------------------
 
@@ -1157,6 +1519,16 @@ def main() -> int:
     check_batch_path("stereo_batch", sb, with_scale=False, ate_gate=STEREO_ATE_GATE)
     async_probe(dev, smi)
 
+    # loop closing: the seeded pose graph on the card against the CPU (it also warms the solvers), then the orbit
+    # per frame and batched under the reference loop test's gates, and the first closure replayed step by step
+    check_pose_graph(dev, smi)
+    loop_runs = {}
+    for name in LOOP_PATHS:
+        loop_runs[name] = run_loop_path(name, dev)
+        check_loop_path(name, loop_runs[name], smi)
+    loop_probe("loop", loop_runs["loop"], dev, smi)
+    loop_probe("loop_tum", loop_runs["loop_tum"], dev, smi)
+
     # kernels A and B against their plain versions (after the paths: these launches do not count)
     err_a = check_fast([("mono", images[0], cfg), ("stereo", simages[0][0], seng.cfg)], dev)
     mono_stack = np.stack(mb["frames"][8 : 8 + BATCH])
@@ -1176,7 +1548,7 @@ def main() -> int:
             "schur_reduce": err_c, "schur_reduce_stereo": err_cs}
     rels = {"schur_reduce": rel_c, "schur_reduce_stereo": rel_cs}
     by_path = {"mono": launches, "stereo": slaunches, "rgbd": rlaunches, "mono_batch": mb["launches"],
-               "stereo_batch": sb["launches"]}
+               "stereo_batch": sb["launches"], **{name: run["launches"] for name, run in loop_runs.items()}}
     # every launch is above these bounds: the shortest single kernel of the timing runs is the practical floor
     floor_ms = min(t["shortest_launch_ms"] for t in times.values())
     say(f"shortest single kernel launch seen while timing (the practical floor of any bound below it): "

@@ -179,6 +179,11 @@ def pack_map_meta(m: MapState) -> torch.Tensor:
     )
 
 
+def map_meta_len(K: int) -> int:
+    """Length of ``pack_map_meta``'s vector at K keyframe slots."""
+    return 29 * K + 1
+
+
 class MapMeta:
     """Host-side view of pack_map_meta (one attribute per packed field)."""
 

@@ -1,10 +1,12 @@
 """Lie-group geometry and the pinhole camera model (port of ``dialog_tpu/geometry.py``).
 
-The subset the tracking paths use. Conventions are the
+The subset the tracking paths and loop closing use. Conventions are the
 reference's:
 
 * poses are world->camera ``(R, t)``: ``X_c = R @ X_w + t``;
 * SE3 tangent vectors are ``xi = (rho, phi)``, translation first;
+* Sim3 tangent vectors are ``(rho, phi, sigma)`` (7,), scale last, ``s = exp(sigma)``;
+* quaternions are ``(w, x, y, z)``;
 * every function broadcasts over leading batch dimensions.
 """
 
@@ -156,6 +158,155 @@ def orthogonalize(R):
     for _ in range(2):
         R = R @ (1.5 * eye - 0.5 * (R.transpose(-1, -2) @ R))
     return R
+
+
+# ---------------------------------------------------------------------------
+# Sim(3) -- (s, R, t); tangent vectors (rho, phi, sigma), s = exp(sigma)
+# ---------------------------------------------------------------------------
+
+
+def sim3_apply(s, R, t, X):
+    return s[..., None] * _mv(R, X) + t
+
+
+def sim3_inv(s, R, t):
+    Rinv = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return s_inv, Rinv, -s_inv[..., None] * _mv(Rinv, t)
+
+
+def sim3_compose(sa, Ra, ta, sb, Rb, tb):
+    return sa * sb, Ra @ Rb, sa[..., None] * _mv(Ra, tb) + ta
+
+
+def _sim3_W(phi, sigma):
+    """The Sim3 'W' matrix coupling (rho, phi, sigma) -> translation,
+    W = A*I + B*hat(phi) + C*hat(phi)^2 (Strasdat's coefficients), with the
+    small-sigma and small-theta limits. Every branch divides by a safe
+    denominator, so forward-mode derivatives through ``torch.where`` stay
+    finite at sigma = 0 and phi = 0."""
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    s = torch.exp(sigma)
+    sig2 = sigma * sigma
+    one = torch.ones_like(sigma)
+
+    small_sig = torch.abs(sigma) < 1e-5
+    small_th = theta2 < 1e-8
+
+    A = torch.where(small_sig, 1.0 + sigma / 2.0 + sig2 / 6.0, (s - 1.0) / torch.where(small_sig, one, sigma))
+
+    sin_t, cos_t = torch.sin(theta), torch.cos(theta)
+    denom = sig2 + theta2
+    denom = torch.where(denom < 1e-12, one, denom)
+
+    # general case (sigma != 0, theta != 0)
+    a_gc = s * sin_t
+    b_gc = s * cos_t
+    B_gen = (a_gc * sigma + (1.0 - b_gc) * theta) / (theta * denom)
+    C_gen = (A - ((b_gc - 1.0) * sigma + a_gc * theta) / denom) / theta2
+
+    # sigma -> 0: B -> (1 - cos)/theta^2, C -> (theta - sin)/theta^3
+    B_s0 = (1.0 - cos_t) / torch.where(small_th, one, theta2)
+    C_s0 = (theta - sin_t) / torch.where(small_th, one, theta2 * theta)
+    B_s0 = torch.where(small_th, 0.5 - theta2 / 24.0, B_s0)
+    C_s0 = torch.where(small_th, 1.0 / 6.0 - theta2 / 120.0, C_s0)
+
+    # theta -> 0 (sigma != 0): B -> (sigma s - s + 1)/sigma^2, C -> (s sigma^2/2 - s sigma + s - 1)/sigma^3
+    safe_sig = torch.where(small_sig, one, sigma)
+    B_t0 = ((sigma - 1.0) * s + 1.0) / (safe_sig * safe_sig)
+    C_t0 = ((0.5 * sig2 - sigma + 1.0) * s - 1.0) / (safe_sig * safe_sig * safe_sig)
+    B_t0 = torch.where(small_sig, 0.5 + sigma / 3.0, B_t0)
+    C_t0 = torch.where(small_sig, 1.0 / 6.0 + sigma / 8.0, C_t0)
+
+    B = torch.where(small_sig, B_s0, torch.where(small_th, B_t0, B_gen))
+    C = torch.where(small_sig, C_s0, torch.where(small_th, C_t0, C_gen))
+
+    W = hat(phi)
+    return A[..., None, None] * _eye_like(W) + B[..., None, None] * W + C[..., None, None] * (W @ W)
+
+
+def sim3_exp(xi):
+    """xi = (rho, phi, sigma) (..., 7) -> (s, R, t)."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    return torch.exp(sigma), so3_exp(phi), _mv(_sim3_W(phi, sigma), rho)
+
+
+def sim3_log(s, R, t):
+    """(s, R, t) -> (..., 7). rho solves W rho = t; ``solve_ex`` leaves out
+    ``torch.linalg.solve``'s status check, a host read on the card (W is
+    invertible for any rotation angle below 2 pi)."""
+    sigma = torch.log(s)
+    phi = so3_log(R)
+    rho = torch.linalg.solve_ex(_sim3_W(phi, sigma), t.unsqueeze(-1), check_errors=False)[0].squeeze(-1)
+    return torch.cat([rho, phi, sigma[..., None]], dim=-1)
+
+
+def sim3_retract(s, R, t, xi):
+    """Left-multiplicative update: S <- exp(xi) o S."""
+    ds, dR, dt = sim3_exp(xi)
+    return sim3_compose(ds, dR, dt, s, R, t)
+
+
+# ---------------------------------------------------------------------------
+# Quaternions (w, x, y, z)
+# ---------------------------------------------------------------------------
+
+
+def quat_normalize(q):
+    return q / (torch.linalg.norm(q, dim=-1, keepdim=True) + _EPS)
+
+
+def quat_mul(a, b):
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        dim=-1,
+    )
+
+
+def quat_to_mat(q):
+    w, x, y, z = quat_normalize(q).unbind(-1)
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def mat_to_quat(R):
+    """Branchless Shepperd's method: the candidate of the largest of 4 q_i^2."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw2 = 1.0 + tr
+    qx2 = 1.0 + m00 - m11 - m22
+    qy2 = 1.0 - m00 + m11 - m22
+    qz2 = 1.0 - m00 - m11 + m22
+
+    def half_root(x):
+        return torch.sqrt(torch.clamp(x, min=_EPS)) * 0.5
+
+    sw, sx, sy, sz = half_root(qw2), half_root(qx2), half_root(qy2), half_root(qz2)
+    cand_w = torch.stack([2 * sw, (m21 - m12) / (2 * sw), (m02 - m20) / (2 * sw), (m10 - m01) / (2 * sw)], -1) * 0.5
+    cand_x = torch.stack([(m21 - m12) / (2 * sx), 2 * sx, (m01 + m10) / (2 * sx), (m02 + m20) / (2 * sx)], -1) * 0.5
+    cand_y = torch.stack([(m02 - m20) / (2 * sy), (m01 + m10) / (2 * sy), 2 * sy, (m12 + m21) / (2 * sy)], -1) * 0.5
+    cand_z = torch.stack([(m10 - m01) / (2 * sz), (m02 + m20) / (2 * sz), (m12 + m21) / (2 * sz), 2 * sz], -1) * 0.5
+    idx = torch.argmax(torch.stack([qw2, qx2, qy2, qz2], dim=-1), dim=-1)
+    cands = torch.stack([cand_w, cand_x, cand_y, cand_z], dim=-2)
+    q = torch.gather(cands, -2, idx[..., None, None].expand(idx.shape + (1, 4)))[..., 0, :]
+    q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)       # canonical sign: w >= 0
+    return quat_normalize(q)
 
 
 # ---------------------------------------------------------------------------

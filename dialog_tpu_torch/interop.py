@@ -7,7 +7,10 @@ The reference's ``FrameArrays`` and ``MapState`` reach this module as what
 both engines can compute from the same map; stereo fields (the keyframe
 store's ``u_right``/``depth``, a problem's ``obs_ur``) travel like any other;
 ``vocab_from_numpy`` does the same for a ``Vocabulary`` (words, idf and the
-two-level tables), so both packages quantize with one codebook;
+two-level tables), so both packages quantize with one codebook, and
+``bow_db_from_numpy`` for the keyframe BoW database, so both detect loops
+from the same rows; ``pose_graph_from_numpy`` carries a
+``PoseGraphProblem``;
 ``map_to_numpy`` goes the other way, as nested dicts of numpy arrays keyed by
 the reference's field names. Descriptor words travel as the reference's
 ``uint32`` and live in the port as ``int32`` bit-casts.
@@ -22,6 +25,7 @@ import torch
 
 from .containers import FrameArrays, KeyframeStore, LandmarkStore, MapState
 from .optim.local_ba import BAProblem
+from .optim.pose_graph import PoseGraphProblem
 from .vocab import Vocabulary
 
 
@@ -79,6 +83,19 @@ def vocab_from_numpy(vocab, device="cuda") -> Vocabulary:
     the two-level tables stay None on a flat codebook."""
     return Vocabulary(**{f: None if _get(vocab, f) is None else numpy_to_tensor(_get(vocab, f), device=device)
                          for f in Vocabulary._fields})
+
+
+def bow_db_from_numpy(db, device="cuda") -> torch.Tensor:
+    """Reference keyframe BoW database f32[K, W] -> tensor on ``device``."""
+    db = np.asarray(db)
+    if db.ndim != 2 or db.dtype != np.float32:
+        raise ValueError(f"a BoW database is f32[K, W], got {db.dtype} {db.shape}")
+    return numpy_to_tensor(db, device=device)
+
+
+def pose_graph_from_numpy(prob, device="cuda") -> PoseGraphProblem:
+    """Reference PoseGraphProblem (numpy leaves) -> port PoseGraphProblem on ``device``."""
+    return _tuple_from_numpy(PoseGraphProblem, prob, device)
 
 
 def _tuple_to_numpy(t) -> dict:

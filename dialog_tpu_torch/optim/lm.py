@@ -53,6 +53,31 @@ def all_finite(*tensors) -> torch.Tensor:
     return ok
 
 
+def jacobian_at_zero(f, n: int, batch: tuple, like: torch.Tensor):
+    """Values and forward-mode Jacobians of ``f`` at xi = 0.
+
+    ``f`` maps xi [n, *batch, n] to a tuple of float outputs [n, *batch, ...]:
+    n copies of the zero point, the k-th carrying the tangent e_k, so one
+    evaluation over the leading axis gives every column. Returns per output
+    (its value [*batch, ...], its Jacobian [*batch, ..., n]). This is what
+    ``torch.func.vmap(jacfwd(f))`` computes; ``jacfwd`` itself is not used
+    because it gives 0-d intermediates combined with a Python number float64
+    tangents (torch 2.13), and the pose graph's per-edge scales are 0-d."""
+    import torch.autograd.forward_ad as fwAD
+
+    shape = (n,) + tuple(batch) + (n,)
+    eye = torch.eye(n, dtype=like.dtype, device=like.device)
+    tangent = eye.reshape((n,) + (1,) * len(batch) + (n,)).expand(shape).contiguous()
+    with fwAD.dual_level():
+        outs = f(fwAD.make_dual(torch.zeros(shape, dtype=like.dtype, device=like.device), tangent))
+        res = []
+        for o in outs:
+            value, tan = fwAD.unpack_dual(o)
+            tan = torch.zeros_like(value) if tan is None else tan
+            res.append((value[0], tan.movedim(0, -1)))
+    return res
+
+
 def huber_weight(chi2: torch.Tensor, delta2) -> torch.Tensor:
     """IRLS weight of the Huber loss: 1 inside delta^2, delta/sqrt(chi2) outside."""
     safe = torch.clamp(chi2, min=1e-12)

@@ -7,6 +7,12 @@ the reference's problem up to one f32 retraction. With ``stereo_frac > 0``
 (and a config whose ``bf > 0``) that share of the observations also carries
 the right-camera coordinate ``uR = u - bf/z``. ``chip_smoke.py`` takes its
 seeded local-BA windows for kernel C's solve check from here.
+
+``make_pose_graph`` builds a seeded Sim3 pose graph of the engine's shape
+(K keyframe slots, K tree + 4K covisibility + 1 loop edges): a ring of
+keyframes whose states carry odometry and scale drift, closed by its loop
+edge. It has no reference counterpart; the parity tests give the same
+problem to both packages.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import torch
 from .. import geometry as geo
 from ..config import EngineConfig
 from .local_ba import BAProblem
+from .pose_graph import PoseGraphProblem
 
 FIXTURE_CFG = EngineConfig(
     max_local_kfs=8, max_fixed_kfs=4, max_local_lms=128, max_obs_per_lm=8
@@ -121,3 +128,62 @@ def make_problem(
         obs_ur=dev(obs_ur) if stereo_frac > 0 else None,
     )
     return prob, Rs, ts, pts, n_cams, n_pts
+
+
+def make_pose_graph(seed: int = 0, K: int = 256, n_live: int | None = None, drift: float = 0.02,
+                    scale_drift: float = 0.995, device="cuda") -> PoseGraphProblem:
+    """A ring of ``n_live`` keyframes (of ``K`` slots, the rest dead) on a
+    circle of radius 3 looking outwards. The edges measure the true relative
+    poses at scale 1: the tree (k -> k-1), covisibility pairs (k -> k-2 and
+    k -> k-3) and the loop edge (last -> 0, weight 5); the rest of the 4K
+    covisibility capacity is padding (``e_ok`` False). The node states
+    compose the tree's measurements with a N(0, ``drift``) twist and the
+    translation shrunk by ``scale_drift`` per step, from node 0, which is
+    frozen; the nodes' scales start at 1."""
+    n_live = K if n_live is None else n_live
+    rng = np.random.default_rng(seed)
+    gt_R, gt_t = [], []
+    for k in range(n_live):
+        th = 2.0 * np.pi * k / n_live
+        R = geo.so3_exp(torch.tensor([0.0, th, 0.0], dtype=torch.float64)).numpy()
+        gt_R.append(R)
+        gt_t.append(-R @ np.array([3.0 * np.sin(th), 0.0, 3.0 * np.cos(th)]))
+
+    def rel(i, j):
+        R_ij = gt_R[i] @ gt_R[j].T
+        return R_ij, gt_t[i] - R_ij @ gt_t[j]
+
+    R0 = np.tile(np.eye(3), (K, 1, 1))
+    t0 = np.zeros((K, 3))
+    R0[0], t0[0] = gt_R[0], gt_t[0]
+    for k in range(1, n_live):
+        R_rel, t_rel = rel(k, k - 1)
+        dR, dt = geo.se3_exp(torch.from_numpy(rng.normal(0.0, drift, 6)))
+        R_rel, t_rel = dR.numpy() @ R_rel, (dR.numpy() @ t_rel + dt.numpy()) * scale_drift ** k
+        R0[k], t0[k] = R_rel @ R0[k - 1], R_rel @ t0[k - 1] + t_rel
+    cov = [(k, k - d) for d in (2, 3) for k in range(d, n_live)][: 4 * K]
+    E = K + 4 * K + 1
+    e_i = np.zeros(E, np.int32)
+    e_j = np.zeros(E, np.int32)
+    e_ok = np.zeros(E, bool)
+    # the tree edge of node k sits at index k, as build_pose_graph lays it out
+    e_i[:K] = np.arange(K)
+    e_j[1:n_live] = np.arange(n_live - 1)
+    e_ok[1:n_live] = True
+    if cov:
+        e_i[K : K + len(cov)], e_j[K : K + len(cov)] = np.array(cov).T
+    e_ok[K : K + len(cov)] = True
+    e_i[E - 1], e_ok[E - 1] = n_live - 1, True
+    m_R = np.tile(np.eye(3), (E, 1, 1))
+    m_t = np.zeros((E, 3))
+    for e in np.nonzero(e_ok)[0]:
+        m_R[e], m_t[e] = rel(int(e_i[e]), int(e_j[e]))
+    e_w = np.ones(E, np.float32)
+    e_w[E - 1] = 5.0
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    return PoseGraphProblem(
+        s=f32(np.ones(K)), R=f32(R0), t=f32(t0),
+        opt=torch.from_numpy((np.arange(K) < n_live) & (np.arange(K) > 0)).to(device),
+        e_i=torch.from_numpy(e_i).to(device), e_j=torch.from_numpy(e_j).to(device), m_s=f32(np.ones(E)),
+        m_R=f32(m_R), m_t=f32(m_t), e_ok=torch.from_numpy(e_ok).to(device), e_w=f32(e_w),
+    )

@@ -56,6 +56,13 @@ BATCH = 8             # bench.py's batch (``bench.py:58``)
 MONO_BATCH_FRAMES = 104     # bench.py's warm-up stretch: 8 frames one by one, then 12 batches
 STEREO_BATCH_FRAMES = 44    # 4 pairs one by one, then 5 batches
 RGBD_SCALE = 0.25   # sweep depths 4-12 -> 1-3 m, inside th_depth x baseline (3.09 m)
+# the loop workload: the reference's own loop-closing orbit (tests/test_loopclosing.py), feature frames
+LOOP_SEED, LOOP_POINTS, LOOP_FRAMES, LOOP_PERIOD = 7, 8000, 260, 200
+LOOP_NOISE_PX, LOOP_DESC_FLIPS = 0.5, 6
+# the pipelined and batched runs' lap: at LOOP_PERIOD the reference engine's batched path (one keyframe a
+# batch, mapping a batch behind) loses the orbit at frame 21 (tools/reference_ate.py loop --batch 8), its
+# pipelined path (mapping up to 3 frames behind) at frame 32 (loop --pipelined)
+LOOP_BATCH_PERIOD = 400
 SYNC_ROWS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "aten::item", "cudaMemcpyAsync")
 
 
@@ -69,6 +76,35 @@ def tum_mono_config():
         max_local_kfs=16, max_fixed_kfs=16, max_obs_per_lm=8,
         local_ba_iters=5, max_frames_between_kf=30,
     )
+
+
+def loop_config():
+    """The reference loop test's own configuration (``tests/test_loopclosing.py``:
+    512 features, 96 keyframes, a keyframe at least every 6 frames, a
+    512-word vocabulary from 5 keyframes), the rest at the defaults (640x480).
+    At the TUM-class configuration with a keyframe every 6 frames the
+    reference engine closes a loop on this orbit but its correction raises
+    the ATE above the test's gate (``tools/reference_ate.py loop --tum``,
+    PERF.md)."""
+    from .config import EngineConfig
+
+    return EngineConfig(max_features=512, max_keyframes=96, max_landmarks=16384, max_local_lms=4096,
+                        max_frames_between_kf=6, vocab_words=512, vocab_min_kfs=5)
+
+
+def loop_tum_config():
+    """The TUM-class monocular configuration with a keyframe at least every 6 frames."""
+    return tum_mono_config().replace(max_frames_between_kf=6)
+
+
+def loop_scene(cfg, period: int = LOOP_PERIOD):
+    """The orbit around a ring of LOOP_POINTS points, one lap every ``period``
+    frames, over 1.3 laps (LOOP_FRAMES at LOOP_PERIOD), so the last 0.3 lap
+    revisits the first."""
+    from .datasets import synth
+
+    return synth.make_scene(seed=LOOP_SEED, n_points=LOOP_POINTS, n_frames=LOOP_FRAMES * period // LOOP_PERIOD,
+                            trajectory="loop", cfg=cfg, period=period)
 
 
 def render_frames(cfg, n: int = N_FRAMES):

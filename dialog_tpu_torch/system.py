@@ -18,8 +18,12 @@ event behind it; the resolve waits on that event alone.
 
 Place recognition: a vocabulary trained from the map's own descriptors at
 ``vocab_min_kfs`` keyframes (retrained when their number has doubled), one
-BoW row per keyframe, and relocalization of a LOST frame (BoW candidates,
-PnP RANSAC, pose refinement). Loop closing and global BA are not here yet.
+BoW row per keyframe, relocalization of a LOST frame (BoW candidates, PnP
+RANSAC, pose refinement), and loop closing (``loopclosing.LoopCloser``): a
+detection dispatched at each keyframe and evaluated at the next, Sim3
+RANSAC, the essential-graph correction. The per-frame and pipelined entries
+pull the detection themselves; ``track_batch`` takes it into the batch's own
+pull and evaluates it at the batch's resolve. Global BA is not here yet.
 """
 
 from __future__ import annotations
@@ -35,9 +39,10 @@ from . import mapping, matching, tracking
 from . import pnp as _pnp
 from . import vocab as _vocab
 from .config import EngineConfig, Sensor
-from .containers import INVALID_ID, FrameArrays, MapMeta, MapState, empty_map, pack_map_meta
+from .containers import INVALID_ID, FrameArrays, MapMeta, MapState, empty_map, map_meta_len, pack_map_meta
 from .frontend import extract_features
 from .init2view import initialize_two_view
+from .loopclosing import LoopCloser
 from .optim.local_ba import local_bundle_adjustment
 from .optim.pose_only import pose_optimization
 from .stereo import depth_from_rgbd, stereo_match_frames
@@ -110,6 +115,8 @@ class Engine:
         self._vocab: Optional[_vocab.Vocabulary] = None
         self._bow_db: Optional[torch.Tensor] = None   # f32[K, W] BoW vector per keyframe
         self._vocab_trained_kfs = 0                   # kf_count at the last (re)train
+        self._loop = LoopCloser(cfg)
+        self.loop_closing_enabled = True
         # pipelined tracking: frames (track_features_async) and batches
         # (track_batch) in flight, and the device-side tracking state they chain
         self._pending: list = []
@@ -171,13 +178,18 @@ class Engine:
         return {"R": R, "t": t, "R_prev": R, "t_prev": t, "lm_ids": self._last_lm_ids,
                 "has_vel": torch.zeros((), dtype=torch.bool, device=self.device)}
 
-    def _start_pull(self, packed: torch.Tensor):
+    def _start_pull(self, packed: torch.Tensor, det=None):
         """Start the host copy of ``packed`` (flattened) followed by the
-        keyframe bookkeeping snapshot of the map as it stands, as ONE
-        vector: (host tensor, event). On the card the copy is non-blocking
-        into pinned memory and the event is recorded behind it; the bytes
-        are the result only once the event has passed (``_finish_pull``)."""
-        vec = torch.cat([packed.reshape(-1), pack_map_meta(self.m)])
+        keyframe bookkeeping snapshot of the map as it stands and, given a
+        pending loop detection ``det`` (``LoopCloser.take_pending``), its
+        vector and neighbour matrix, as ONE vector: (host tensor, event). On
+        the card the copy is non-blocking into pinned memory and the event is
+        recorded behind it; the bytes are the result only once the event has
+        passed (``_finish_pull``)."""
+        parts = [packed.reshape(-1), pack_map_meta(self.m)]
+        if det is not None:
+            parts += [det[1], det[2].reshape(-1).to(torch.float32)]
+        vec = torch.cat(parts)
         if vec.device.type != "cuda":
             return vec, None
         host = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
@@ -259,18 +271,22 @@ class Engine:
                            "has_vel": torch.ones((), dtype=torch.bool, device=self.device)}
         fids = list(range(self.frame_id, self.frame_id + B))
         self.frame_id += B
-        # (a pending loop detection would be taken here and evaluated at the
-        # resolve: loop closing is not ported yet)
-        pull = self._start_pull(packed)
-        self._pending_b.append((frames, [float(t) for t in timestamps], fids, self.ref_kf, lm_l, pull))
+        # the loop detection dispatched at the last keyframe rides this
+        # batch's pull and is evaluated when the batch resolves
+        det = self._loop.take_pending() if self.loop_closing_enabled else None
+        pull = self._start_pull(packed, det)
+        det = None if det is None else (det[0], det[3])
+        self._pending_b.append((frames, [float(t) for t in timestamps], fids, self.ref_kf, lm_l, pull, det))
         return out
 
     def _resolve_batch(self) -> list[FrameRecord]:
-        frames, ts_list, fids, ref_launch, lm_l, pull = self._pending_b.pop(0)
+        frames, ts_list, fids, ref_launch, lm_l, pull, det = self._pending_b.pop(0)
         cfg = self.cfg
         B = len(ts_list)
+        K = cfg.max_keyframes
         V = self._finish_pull(pull)                  # ONE pull per batch
         P = V[: B * 26].reshape(B, 26)
+        det_at = B * 26 + map_meta_len(K)           # the detection's vector [5K] and neighbour matrix [K, K]
         out = []
         lost_at = None
         for b in range(B):
@@ -320,6 +336,14 @@ class Engine:
             self._insert_keyframe(FrameArrays(*[x[B - 1] for x in frames]), ts_list[B - 1], fids[B - 1],
                                   self._tensor(P[B - 1, :9].reshape(3, 3)), self._tensor(P[B - 1, 9:12]), lm_l,
                                   slot, n_last)
+            # dispatch only: the detection rides the next batch's pull
+            self._detect_and_close_loop(slot, dispatch_only=True)
+        # the detection dispatched at an earlier keyframe, pulled with this batch
+        if det is not None:
+            det_kf, stamp = det
+            vec = V[det_at : det_at + 5 * K]
+            neigh = V[det_at + 5 * K : det_at + 5 * K + K * K].reshape(K, K).astype(np.uint8)
+            self._close_loop_from(det_kf, self._loop.evaluate(det_kf, vec, neigh, stamp=stamp))
         return out
 
     def shutdown(self) -> None:
@@ -370,12 +394,16 @@ class Engine:
             slot = self._alloc_kf_slot()
         if slot is not None:
             self._insert_keyframe(frame, ts, fid, R_d, t_d, lm_ids_d, slot, n_tracked)
+            self._detect_and_close_loop(slot)
         return rec
 
     def _insert_keyframe(self, frame, ts, fid, R, t, lm_ids, slot, n_tracked) -> None:
         """The keyframe pipeline: insertion, local BA, the vocabulary and the
         BoW row. The pipelined entries go on from their device-side state, so
-        they do not read the refined pose back."""
+        they do not read the refined pose back. Each caller then detects
+        loops (``_detect_and_close_loop``) where the reference does: the
+        per-frame entry after taking up the refined pose, the batched one
+        dispatch only."""
         cfg = self.cfg
         self.m = mapping.process_new_keyframe(
             self.m, frame, R, t, lm_ids, fid, ts, slot, self.ref_kf, cfg,
@@ -389,7 +417,6 @@ class Engine:
         self.last_kf_tracked = n_tracked
         self._ensure_vocab()
         self._update_bow_row(slot)
-        # (loop detection for the new keyframe would run, or in the batch path be queued, here: not ported yet)
 
     def final_poses(self) -> list[tuple[np.ndarray, np.ndarray]]:
         """Per-frame world->camera poses composed against the current map."""
@@ -828,4 +855,49 @@ class Engine:
             self._last_R = _host(self.m.kfs.R[slot])
             self._last_t = _host(self.m.kfs.t[slot])
         self._last_lm_ids = self.m.kfs.obs_lm[slot]
+        self._detect_and_close_loop(slot)
         self._refresh_kf_meta_blocking()
+
+    # --- loop closing (reference: LoopClosing::Run) ----------------------
+
+    def _detect_and_close_loop(self, slot: int, dispatch_only: bool = False) -> None:
+        """Detection for keyframe ``slot``. Synchronous: dispatch it, and
+        evaluate (and close) the previous keyframe's. ``dispatch_only`` (the
+        batched entry): queue it; ``track_batch`` takes it into its pull."""
+        if not self.loop_closing_enabled or self._vocab is None or self.kf_count <= 10:
+            return
+        if dispatch_only:
+            self._loop.dispatch(self.m, self._bow_db, self._vocab, slot, stamp=self.kf_count)
+            return
+        det_kf, cands = self._loop.detect(self.m, self._bow_db, self._vocab, slot, stamp=self.kf_count)
+        self._close_loop_from(det_kf, cands)
+
+    def _close_loop_from(self, det_kf: int, cands) -> None:
+        """Compute the Sim3 of each accepted candidate in turn and correct
+        the map with the first that holds; tracking resumes from the
+        corrected pose of the reference keyframe."""
+        if not cands:
+            return
+        # detection lags evaluation by a keyframe: a slot involved may have
+        # been culled and recycled into an unrelated keyframe since. Check the
+        # insertion numbers against the live map (a blocking read, only when
+        # there are candidates)
+        seq_now = _host(self.m.kfs.seq)
+        valid_now = _host(self.m.kfs.valid)
+        det_seq = self._loop.last_eval_det_seq
+        if not valid_now[det_kf] or (det_seq is not None and int(seq_now[det_kf]) != det_seq):
+            return
+        for c, c_seq in cands:
+            if not valid_now[c] or int(seq_now[c]) != c_seq:
+                continue
+            lc = self._loop.compute_sim3(self.m, det_kf, c, generator=self._gen)
+            if lc is None:
+                continue
+            self.m = self._loop.correct(self.m, det_kf, lc, self.cfg)
+            # (global BA of the corrected map would start here: not ported yet)
+            self._last_R = _host(self.m.kfs.R[self.ref_kf])
+            self._last_t = _host(self.m.kfs.t[self.ref_kf])
+            self._vel = None
+            # in-flight device tracking state predates the correction
+            self._dev_state = None
+            break

@@ -6,7 +6,8 @@ The port takes its random draws from the reference's key stream
 
 * ``track_features_async`` + ``flush``: a record per frame, in frame order,
   the same states and the same keyframes (their frame ids) as the reference,
-  positions within 2e-4 m;
+  positions within 2e-4 m; the loop-closing site runs synchronously for each
+  keyframe the pipeline inserts;
 * ``flush`` and ``shutdown`` on an empty pipeline change nothing;
 * ``track_batch`` records what ``track_features`` records, frame by frame,
   while the engine is not yet OK.
@@ -32,6 +33,11 @@ def test_async_gives_a_record_per_frame_and_the_reference_keyframes(frames):
     jeng = JEngine(JConfig(**CFG))
     jeng.loop_closing_enabled = False
     teng = TEngine(TConfig(**CFG), device="cpu")
+    teng.loop_closing_enabled = False
+    sites = []
+    site = teng._detect_and_close_loop
+    teng._detect_and_close_loop = lambda slot, dispatch_only=False: (sites.append((slot, dispatch_only)),
+                                                                     site(slot, dispatch_only))
     returned = []
     with pytest.MonkeyPatch.context() as mp:
         ReferenceStream().patch(mp)
@@ -45,6 +51,8 @@ def test_async_gives_a_record_per_frame_and_the_reference_keyframes(frames):
     assert [r.state for r in teng.trajectory] == [r.state for r in jeng.trajectory]
     assert _kf_frames(teng) == _kf_frames(jeng) and teng.kf_count >= 5
     assert not teng._pending and teng._dev_state is None
+    # every keyframe after the two of initialization, detected synchronously
+    assert len(sites) == teng.kf_count - 2 and not any(d for _, d in sites)
     # while the pipeline fills nothing resolves; then each call returns the frame `depth` back
     resolved = [r.frame_id for r in returned if r is not None]
     assert resolved == sorted(resolved) and None in returned

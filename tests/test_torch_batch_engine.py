@@ -108,6 +108,7 @@ def _run_batches(frames, occlude):
     jeng = JEngine(JConfig(**CFG))
     jeng.loop_closing_enabled = False
     teng = TEngine(TConfig(**CFG), device="cpu")
+    teng.loop_closing_enabled = False
     with pytest.MonkeyPatch.context() as mp:
         ReferenceStream().patch(mp)
         for i in range(0, N, B):

@@ -29,6 +29,14 @@ event-guarded pull of the pipelined engine against a blocking copy; and
 (synthetic observations: the same states frame by frame and positions within
 5e-3 of the sweep's ~2 m, which is what f32 sums taken in another order
 leave after 48 frames of pose optimization and five local BAs).
+
+Loop closing: ``solve_pose_graph`` on the card against the CPU on a seeded
+Sim3 graph of the mono capacities (K = 256, a 1,792 x 1,792 system, 25
+iterations: s, R and t within 1e-4, where an f32 solve on the CPU sits
+within 5e-6 of a float64 one), and on a map the engine built on the card,
+the guided Sim3 match count (kernel B's mutual mode against the plain form)
+equal on the card and on the CPU, with ``compute_sim3`` from the same
+minimal sets giving the same outcome and a similarity within 1e-3.
 """
 
 import numpy as np
@@ -641,3 +649,62 @@ def test_track_batch_on_the_card_follows_the_cpu_engine(cuda):
     assert len(b.trajectory) == N and b.state == OK and a.kf_count == b.kf_count
     ok = np.array([r.state == OK for r in a.trajectory])
     assert float(np.abs(a.positions[ok] - b.positions[ok]).max()) < 5e-3
+
+
+def test_pose_graph_on_the_card_follows_the_cpu(cuda):
+    from dialog_tpu_torch.optim.pose_graph import solve_pose_graph
+    from dialog_tpu_torch.optim.synth_problem import make_pose_graph
+
+    got = solve_pose_graph(make_pose_graph(seed=0, K=256, device=cuda), iters=25)
+    want = solve_pose_graph(make_pose_graph(seed=0, K=256, device="cpu"), iters=25)
+    for g, w in zip(got[:3], want[:3]):
+        assert float((g.cpu() - w).abs().max()) < 1e-4
+    assert float(got[3]) < 1e-6 and float(want[3]) < 1e-6
+
+
+def test_guided_sim3_matches_and_compute_sim3_on_the_card(cuda):
+    from dialog_tpu_torch import loopclosing as lc
+    from dialog_tpu_torch.sim3 import draw_sim3_sets
+    from dialog_tpu_torch.system import Engine
+
+    cfg = EngineConfig(max_features=512, max_keyframes=32, max_landmarks=8192, max_local_lms=1024,
+                       max_frames_between_kf=4, vocab_min_kfs=1000)
+    scene = synth.make_scene(seed=51, n_points=900, n_frames=40, cfg=cfg)
+    eng = Engine(cfg, device=cuda)
+    for i in range(40):
+        eng.track_features(synth.observe(scene, i, noise_px=0.4, device=cuda)[0], i / 30.0)
+    assert eng.kf_count >= 5
+    m = eng.m
+    m_cpu = type(m)(*[type(x)(*[None if y is None else y.cpu() for y in x]) if hasattr(x, "_fields") else x.cpu()
+                      for x in m])
+    seq = m.kfs.seq.cpu().numpy()
+    live = [int(k) for k in np.argsort(seq) if bool(m.kfs.valid[k])]
+    cur = live[-1]
+    closed = 0
+    for cand in live[-4:-1]:
+        R = m.kfs.R[cand] @ m.kfs.R[cur].T
+        t = m.kfs.t[cand] - R @ m.kfs.t[cur]
+        s = torch.ones((), device=cuda)
+        common.reset_launch_counts()
+        n_card = int(lc._guided_sim3_matches(m, cur, cand, s, R, t, cfg))
+        assert common.launches["hamming_mutual"] == 1
+        n_cpu = int(lc._guided_sim3_matches(m_cpu, cur, cand, s.cpu(), R.cpu(), t.cpu(), cfg))
+        assert n_card == n_cpu and n_card > 0
+        pick = {}
+
+        def draw(valid, iters, generator=None, pick=pick):
+            if "p" not in pick:
+                pick["p"] = draw_sim3_sets(valid.cpu(), iters, torch.Generator().manual_seed(cand))
+            return pick["p"]
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(lc, "draw_sim3_sets", draw)
+            a = lc.LoopCloser(cfg).compute_sim3(m, cur, cand)
+            b = lc.LoopCloser(cfg).compute_sim3(m_cpu, cur, cand)
+        assert (a is None) == (b is None)
+        if a is not None:
+            closed += 1
+            assert abs(a.s - b.s) < 1e-3 and abs(a.n_inliers - b.n_inliers) <= 2
+            np.testing.assert_allclose(a.R, b.R, atol=1e-3, rtol=0)
+            np.testing.assert_allclose(a.t, b.t, atol=1e-3, rtol=0)
+    assert closed >= 1

@@ -79,6 +79,7 @@ def _run_both(cfg_kw, method, inputs_j, inputs_t):
     jeng = JEngine(JConfig(**cfg_kw))
     jeng.loop_closing_enabled = False
     teng = TEngine(TConfig(**cfg_kw), device="cpu")
+    teng.loop_closing_enabled = False
     track_j, track_t = getattr(jeng, method), getattr(teng, method)
     for i, x in enumerate(inputs_j):
         track_j(x, float(i) / 30.0)

@@ -130,3 +130,91 @@ def test_umeyama_alignment(with_scale):
     assert abs(float(sj) - float(st)) < 1e-4
     _close(Rj, Rt, atol=1e-4)
     _close(tj, tt, atol=1e-4)
+
+
+# --- Sim3 and quaternions -----------------------------------------------------
+# Tolerance: 1e-5 on unit-scale rotations, translations and scales; 1e-4 on
+# log maps (atan2 and a 3x3 solve in f32); finite differences in float64
+# against forward-mode derivatives at 1e-6.
+
+
+def _sim3_xi(seed, n=24, rot=0.8, sig=0.4):
+    rng = _rng(seed)
+    xi = np.concatenate([rng.normal(size=(n, 3)), rng.normal(size=(n, 3)) * rot, rng.normal(size=(n, 1)) * sig], -1)
+    return xi.astype(np.float32)
+
+
+# the branches of _sim3_W: general, sigma near 0, theta near 0, both
+BRANCHES = {"general": (0.8, 0.4), "small_sigma": (0.8, 1e-7), "small_theta": (1e-6, 0.4), "both_small": (1e-6, 1e-7)}
+
+
+@pytest.mark.parametrize("branch", sorted(BRANCHES))
+def test_sim3_exp_log_W(branch):
+    rot, sig = BRANCHES[branch]
+    xi = _sim3_xi(11, rot=rot, sig=sig)
+    Wj = jg._sim3_W(jnp.asarray(xi[:, 3:6]), jnp.asarray(xi[:, 6]))
+    Wt = tg._sim3_W(torch.from_numpy(xi[:, 3:6]), torch.from_numpy(xi[:, 6]))
+    _close(Wj, Wt)
+    sj, Rj, tj = jg.sim3_exp(jnp.asarray(xi))
+    st, Rt, tt = tg.sim3_exp(torch.from_numpy(xi))
+    for a, b in [(sj, st), (Rj, Rt), (tj, tt)]:
+        _close(a, b)
+    _close(jg.sim3_log(sj, Rj, tj), tg.sim3_log(st, Rt, tt), atol=1e-4)
+    # round trip
+    _close(xi, tg.sim3_log(st, Rt, tt), atol=1e-4)
+
+
+def test_sim3_apply_inv_compose_retract():
+    xa, xb = _sim3_xi(12), _sim3_xi(13)
+    A = [jg.sim3_exp(jnp.asarray(xa)), tg.sim3_exp(torch.from_numpy(xa))]
+    B = [jg.sim3_exp(jnp.asarray(xb)), tg.sim3_exp(torch.from_numpy(xb))]
+    X = _rng(14).normal(size=(24, 3)).astype(np.float32)
+    _close(jg.sim3_apply(*A[0], jnp.asarray(X)), tg.sim3_apply(*A[1], torch.from_numpy(X)))
+    for a, b in zip(jg.sim3_inv(*A[0]), tg.sim3_inv(*A[1])):
+        _close(a, b, atol=1e-4)
+    for a, b in zip(jg.sim3_compose(*A[0], *B[0]), tg.sim3_compose(*A[1], *B[1])):
+        _close(a, b, atol=1e-4)
+    d = _sim3_xi(15, rot=0.05, sig=0.05) * 0.1
+    for a, b in zip(jg.sim3_retract(*A[0], jnp.asarray(d)), tg.sim3_retract(*A[1], torch.from_numpy(d))):
+        _close(a, b, atol=1e-4)
+
+
+def test_sim3_retract_jacobian_at_zero():
+    """Forward-mode derivatives of sim3_retract at zero (torch.func.jacfwd, on
+    a batch of one so no intermediate is 0-d, and the port's own
+    optim.lm.jacobian_at_zero) against central finite differences in float64."""
+    from torch.func import jacfwd
+
+    from dialog_tpu_torch.optim.lm import jacobian_at_zero
+
+    s, R, t = tg.sim3_exp(torch.from_numpy(_sim3_xi(16, n=1)).double())
+
+    def flat(xi):
+        s2, R2, t2 = tg.sim3_retract(s, R, t, xi)
+        return torch.cat([s2[..., None], R2.reshape(R2.shape[:-2] + (9,)), t2], -1)
+
+    J = jacfwd(flat)(torch.zeros(1, 7, dtype=torch.float64))[0, :, 0, :]          # [13, 7]
+    eps = 1e-6
+    fd = torch.stack([(flat(torch.eye(7, dtype=torch.float64)[k:k + 1] * eps)
+                       - flat(-torch.eye(7, dtype=torch.float64)[k:k + 1] * eps))[0] / (2 * eps) for k in range(7)], -1)
+    np.testing.assert_allclose(J.numpy(), fd.numpy(), atol=1e-6)
+    (_, J2), = jacobian_at_zero(lambda x: (flat(x[:, None, :])[:, 0],), 7, (), R)
+    np.testing.assert_allclose(J2.numpy(), fd.numpy(), atol=1e-6)
+
+
+def test_quaternions():
+    rng = _rng(17)
+    q = rng.normal(size=(32, 4)).astype(np.float32)
+    q2 = rng.normal(size=(32, 4)).astype(np.float32)
+    _close(jg.quat_normalize(jnp.asarray(q)), tg.quat_normalize(torch.from_numpy(q)))
+    _close(jg.quat_mul(jnp.asarray(q), jnp.asarray(q2)), tg.quat_mul(torch.from_numpy(q), torch.from_numpy(q2)),
+           atol=1e-4)
+    _close(jg.quat_to_mat(jnp.asarray(q)), tg.quat_to_mat(torch.from_numpy(q)))
+    # every Shepperd branch: rotations by up to pi about random axes, and the coordinate axes at pi
+    phi = _sim3_xi(18, n=64, rot=1.5)[:, 3:6]
+    Rs = np.concatenate([np.array(jg.so3_exp(jnp.asarray(phi))),
+                         np.stack([np.diag(d) for d in ([1, -1, -1], [-1, 1, -1], [-1, -1, 1])]).astype(np.float32)])
+    qj = jg.mat_to_quat(jnp.asarray(Rs))
+    qt = tg.mat_to_quat(torch.from_numpy(Rs))
+    _close(qj, qt)
+    _close(Rs, tg.quat_to_mat(qt), atol=1e-5)

@@ -59,6 +59,50 @@ def _reduce_args(prob, lam):
     return (prob.R, prob.t, prob.cam_opt, prob.xyz, prob.obs_cam, prob.obs_uv, prob.obs_w, lam)
 
 
+def test_mono_jacobians_match_reference_and_jacfwd():
+    """Local BA's mono observation terms (``kernels.schur.observation_terms``,
+    kernel C's plain version) on a seeded problem: residuals and Jacobians
+    against the reference's ``project_jacobians`` (1e-3 px-scaled, 1e-5
+    otherwise), then, in float64, each observation's pose and point
+    Jacobians against ``torch.func.jacfwd`` of its residual through
+    ``se3_retract`` and through the point (1e-4 relative, 1e-6 absolute)."""
+    from dialog_tpu import geometry as jg
+    from dialog_tpu_torch import geometry as tg
+
+    prob = _prob_to_torch(make_problem(seed=2, cfg=FIXTURE_CFG)[0])
+    c = TCFG_FIXTURE
+    intr = (c.fx, c.fy, c.cx, c.cy)
+    r, J_c, J_l, ok = tschur.observation_terms(prob.R, prob.t, prob.xyz, prob.obs_cam, prob.obs_uv, prob.obs_ok,
+                                               *intr)
+    assert r.shape[-1] == 2 and int(ok.sum()) > 50
+    safe = torch.clamp(prob.obs_cam, 0, prob.R.shape[0] - 1).long()
+    X = prob.xyz[:, None, :].expand(prob.obs_uv.shape[:2] + (3,))
+    uv_j, _, Jp_j, Jx_j = jg.project_jacobians(jnp.asarray(prob.R[safe].numpy()), jnp.asarray(prob.t[safe].numpy()),
+                                              jnp.asarray(X.numpy()), *intr)
+    m = ok.numpy()
+    np.testing.assert_allclose(r.numpy()[m], (np.asarray(uv_j) - prob.obs_uv.numpy())[m], atol=1e-3, rtol=0)
+    np.testing.assert_allclose(J_c.numpy()[m], np.asarray(Jp_j)[m], atol=1e-3, rtol=1e-5)
+    np.testing.assert_allclose(J_l.numpy()[m], np.asarray(Jx_j)[m], atol=1e-5, rtol=1e-5)
+
+    R64, t64, X64, uv64 = prob.R.double(), prob.t.double(), prob.xyz.double(), prob.obs_uv.double()
+    p_idx, o_idx = np.nonzero(m)
+    for p, o in list(zip(p_idx, o_idx))[:: max(1, len(p_idx) // 24)]:
+        cam = int(prob.obs_cam[p, o])
+
+        def res_pose(d, p=p, o=o, cam=cam):
+            Rp, tp = tg.se3_retract(R64[cam], t64[cam], d)
+            return tg.reprojection_terms(Rp, tp, X64[p], uv64[p, o], *intr)[0]
+
+        def res_point(Xp, p=p, o=o, cam=cam):
+            return tg.reprojection_terms(R64[cam], t64[cam], Xp, uv64[p, o], *intr)[0]
+
+        _, _, Jc64, Jl64 = tg.reprojection_terms(R64[cam], t64[cam], X64[p], uv64[p, o], *intr)
+        np.testing.assert_allclose(Jc64.numpy(), torch.func.jacfwd(res_pose)(torch.zeros(6, dtype=torch.float64)),
+                                   rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(Jl64.numpy(), torch.func.jacfwd(res_point)(X64[p]), rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(J_c[p, o].double().numpy(), Jc64.numpy(), rtol=1e-4, atol=1e-3)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_schur_reduce_plain_matches_pallas_interpret(seed, monkeypatch):
     monkeypatch.setenv("DIALOG_TPU_PALLAS_INTERPRET", "1")

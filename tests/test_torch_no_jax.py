@@ -4,7 +4,8 @@ A child interpreter in which ``import jax`` and ``import dialog_tpu`` fail
 imports ``dialog_tpu_torch``, every one of its submodules and
 ``chip_smoke``, then extracts features from a 160x120 image with the port's
 plain frontend (one image and a batch of two), trains and queries a small
-vocabulary and solves a PnP problem. A static check finds no JAX import and no reference to the
+vocabulary, solves a PnP problem, a Sim3 RANSAC problem and a seeded Sim3
+pose graph. A static check finds no JAX import and no reference to the
 JAX package in the port's sources or in ``chip_smoke.py``.
 """
 
@@ -50,6 +51,17 @@ uv = torch.stack([130.0 * X[:, 0] / X[:, 2] + 80.0, 130.0 * X[:, 1] / X[:, 2] + 
 ok = torch.ones(40, dtype=torch.bool)
 res = pnp.solve_pnp_ransac(X, uv, ok, 130.0, 130.0, 80.0, 60.0, pnp.draw_pnp_sets(ok, 32, torch.Generator().manual_seed(0)))
 assert bool(res.success)
+from dialog_tpu_torch import sim3
+from dialog_tpu_torch.optim import pose_graph, synth_problem
+from dialog_tpu_torch.geometry import so3_exp
+R = so3_exp(torch.tensor([0.1, -0.2, 0.3]))
+X2 = 1.3 * X @ R.T + torch.tensor([0.5, 0.0, -0.2])
+r3 = sim3.solve_sim3_ransac(X, X2, ok, sim3.draw_sim3_sets(ok, 32, torch.Generator().manual_seed(0)))
+assert bool(r3.success) and abs(float(r3.s) - 1.3) < 1e-3
+pg = synth_problem.make_pose_graph(seed=0, K=12, device="cpu")
+cost0 = pose_graph._system(pg, pg.s, pg.R, pg.t)[0]
+assert float(pose_graph.solve_pose_graph(pg, iters=5)[3]) < float(cost0)
+assert {"dialog_tpu_torch.sim3", "dialog_tpu_torch.loopclosing", "dialog_tpu_torch.optim.pose_graph"} <= set(names)
 assert "jax" not in [m for m in sys.modules if sys.modules[m] is not None]
 print(len(names), int(fr.valid.sum()), tuple(fr.desc.shape))
 """
@@ -59,7 +71,7 @@ def test_port_imports_and_runs_without_jax():
     out = subprocess.run([sys.executable, "-c", CHILD], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, n_valid, desc_shape = out.stdout.split(maxsplit=2)
-    assert int(n_modules) >= 22
+    assert int(n_modules) >= 25
     assert int(n_valid) > 50
     assert desc_shape.strip() == "(160, 8)"
 

@@ -50,6 +50,7 @@ def engines():
         jeng.track_features(jsynth.observe(scene, i, noise_px=0.4, desc_flips=6)[0], float(i) / 30.0)
     assert jeng.state == OK and jeng._vocab is not None and jeng.kf_count >= 6
     teng = TEngine(TConfig(**CFG), device="cpu")
+    teng.loop_closing_enabled = False
     teng.m = interop.map_from_numpy(jax.device_get(jeng.m), device="cpu")
     teng._vocab = interop.vocab_from_numpy(jax.device_get(jeng._vocab), device="cpu")
     teng._bow_db = torch.from_numpy(np.array(jeng._bow_db))

@@ -57,8 +57,9 @@ RGBD_GAP_M = 3e-2
 
 def _engines(cfg_kw, sensor):
     jeng = JEngine(JConfig(**cfg_kw, sensor=JSensor(sensor.value)))
-    jeng.loop_closing_enabled = False
-    return jeng, TEngine(TConfig(**cfg_kw, sensor=sensor), device="cpu")
+    teng = TEngine(TConfig(**cfg_kw, sensor=sensor), device="cpu")
+    jeng.loop_closing_enabled = teng.loop_closing_enabled = False
+    return jeng, teng
 
 
 @pytest.fixture(scope="module")

@@ -45,6 +45,7 @@ def runs():
     jeng = JEngine(JConfig(**HALF_KITTI, sensor=JSensor.STEREO))
     jeng.loop_closing_enabled = False
     teng = TEngine(TConfig(**HALF_KITTI, sensor=TSensor.STEREO), device="cpu")
+    teng.loop_closing_enabled = False
     scene, pairs = render_stereo_frames(teng.cfg, N_PAIRS)
     steps = []
     for i, (left, right) in enumerate(pairs):
