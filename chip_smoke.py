@@ -54,22 +54,40 @@ Needs one CUDA card and nvcc; exits non-zero without them. It
    host pull per batch. Then the same 260 frames per frame at the TUM-class
    configuration at full width (``loop_tum``: 1000 features, K = 256),
    gated on a closure only (the reference's own closure there raises the ATE
-   past the test's gate, ROADMAP D13). The first closure of ``loop`` and of
+   past the test's gate, ROADMAP D13). Each closure starts a global BA that
+   advances one PCG LM iteration per tracked frame or batch (at ``flush`` in
+   the pipelined run) and folds into the map: at least one run, none in
+   flight after the closing ``flush``, the ATE just after the first one
+   folded in, each tick's stall. The first closure of ``loop`` and of
    ``loop_tum`` is then replayed on a copy of its map and each step timed
-   (``loop_probe``);
-9. checks kernel A (FAST rank: level by level and all levels of the mono and
+   (``loop_probe``, with the GBA's start and one tick);
+9. checks global BA. ``gba_dense``: ``global_bundle_adjustment`` on the
+   ``loop`` run's final map moved off its optimum (K = 96: the dense branch,
+   kernel C at C = 96) against ``solve_ba_pcg`` on the same problem and
+   against the same call on a CPU copy. ``gba_sharded``: two ranks on the
+   card (``python -m dialog_tpu_torch.gba_rank``, a gloo group) solve the
+   ``loop`` (dense, kernel C on each rank) and ``loop_tum`` (K = 256, PCG)
+   maps, which this process saved, against this process's one-rank solve.
+   ``gba_capacity``: ``tests/test_kitti_capacity.py`` at the full KITTI00
+   preset (the corridor map of ``synth_problem.build_corridor_map``, a
+   keyframe with local BA at occupancy, the global problem through the PCG),
+   with the times of building the problem, of one PCG LM iteration and of an
+   engine tick, the CG iterations and the peak memory;
+10. checks kernel A (FAST rank: level by level and all levels of the mono and
    the stereo pyramid in one launch, odd sizes, a 32-level table; over a batch:
    one real batch of each batched path against the plain version and against
    one-image launches, odd sizes) and kernel
    B (gated Hamming best/second, and the one-pass mutual match against its
    two-call plain form, with and without each gate, with ties and empty
    sides) against their plain PyTorch versions on the card, bit for bit;
-10. times each kernel at its path's shapes: the device's own time per call
+11. times each kernel at its path's shapes: the device's own time per call
    under ``torch.profiler`` (the kernel's launches by name, kernel C's two
    stages apart), the pace of back-to-back wrapper calls between two CUDA
    events (host work included), the plain version likewise, and the least
    time the card could take for the same inputs (bytes over 3.35 TB/s or
-   operations over 67 TFLOP/s f32, whichever is larger).
+   operations over 67 TFLOP/s f32, whichever is larger); and kernel C at
+   global BA's camera counts (C = 96, 128 and 192 on seeded problems of
+   16,384 landmark slots, O = 12), held against its plain version first.
 
 Each path runs on a fresh engine, with every kernel's launch count reset just
 before it and read just after (``hamming_best2``, the standalone form of
@@ -139,6 +157,34 @@ LOOP_PATHS = ("loop", "loop_async", "loop_batch", "loop_tum")
 POSE_GRAPH_K = 256
 POSE_GRAPH_ITERS = 25
 POSE_GRAPH_TOL = 1e-4
+# the reference engine on the loop paths' frames with its global BA on (tools/reference_ate.py loop [--batch 8
+# --period 400 | --pipelined --period 400 | --tum], CPU): first closure (insertion numbers, frame), ATE of the
+# frames so far just before and after it and after its GBA folded in, final ATE, m
+REFERENCE_LOOP = {
+    "loop": dict(closure=[35, 0, 198], ate_before_m=0.1675, ate_after_m=0.1106, ate_after_gba_m=0.1287,
+                 final_ate_m=0.1236),
+    "loop_async": dict(closure=[67, 0, 405], ate_before_m=0.0302, ate_after_m=0.0263, ate_after_gba_m=0.0248,
+                       final_ate_m=0.0248),
+    "loop_batch": dict(closure=[49, 1, 392], ate_before_m=0.0310, ate_after_m=0.0938, ate_after_gba_m=0.0530,
+                       final_ate_m=0.0511),
+    "loop_tum": dict(closure=[37, 1, 207], ate_before_m=0.0886, ate_after_m=2.8933, ate_after_gba_m=2.2997,
+                     final_ate_m=2.9540),
+}
+# global BA checks (gba_dense, gba_sharded): the final loop maps with their optimized keyframes and their landmarks
+# moved by N(0, GBA_NOISE) from GBA_SEED, GBA_ITERS LM iterations; the CPU tests' bounds
+# (tests/test_torch_global_ba.py, tests/test_torch_distributed.py: the reference's for 8 devices against 1)
+GBA_SEED = 13
+GBA_NOISE = 1e-2
+GBA_ITERS = 4
+GBA_TOL_POSE = 1e-4
+GBA_TOL_XYZ = 1e-3
+# gba_capacity: tests/test_kitti_capacity.py's corridor at the KITTI00 preset
+CORRIDOR_KFS = 1100
+CORRIDOR_STEP = 0.8
+CORRIDOR_TOL = 0.5      # metres: median |t_z + k x step| of the corridor's keyframes after the GBA
+# kernel C at global BA's camera counts: seeded problems of P slots (LARGE_C_PTS live landmarks, each in O cameras)
+LARGE_C = (96, 128, 192)
+LARGE_C_P, LARGE_C_O, LARGE_C_PTS = 16384, 12, 6000
 
 # published peaks of one H100 SXM at its full 700 W: HBM3, and f32 outside the tensor cores
 # (integer and min/max operations are counted at the same rate)
@@ -200,7 +246,8 @@ def device_ms(fn, own: tuple, reps: int = 20, warm: int = 3) -> dict:
     kernels), and ``shortest_launch_ms`` the shortest single kernel seen. The
     profiler may drop a launch's record, so a stage counts the records it
     has. With no name in ``own`` the call is PyTorch's alone and all of its
-    device time is ``other_device_ms``."""
+    device time is ``other_device_ms``. A session without a single device
+    record fails, with or without names in ``own``."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm):
@@ -212,9 +259,11 @@ def device_ms(fn, own: tuple, reps: int = 20, warm: int = 3) -> dict:
         torch.cuda.synchronize()
     seen = {k: [] for k in own}
     other, shortest = 0.0, float("inf")
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    records = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not records:
+        # a session that came back without any device record (ROADMAP D11) reads as no time: fail, whatever own is
+        fail(f"the profiler's session over {reps} calls holds no device record at all: no device time to report")
+    for e in records:
         ms = (e.time_range.end - e.time_range.start) * 1e-3
         mine = [k for k in own if k in e.name]
         if mine:
@@ -224,12 +273,29 @@ def device_ms(fn, own: tuple, reps: int = 20, warm: int = 3) -> dict:
         if not e.name.startswith(("Memcpy", "Memset")):
             shortest = min(shortest, ms)
     if own and not any(seen.values()):
-        n_dev = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
-        fail(f"the profiler saw no launch of {own} in {reps} calls ({n_dev} device records in all): "
+        fail(f"the profiler saw no launch of {own} in {reps} calls ({len(records)} device records in all): "
              f"no device time to report")
     stages = {k: sum(v) / len(v) * max(1, round(len(v) / reps)) for k, v in seen.items() if v}
     return {"device_ms": sum(stages.values()), "stages_ms": stages, "other_device_ms": other,
             "shortest_launch_ms": shortest}
+
+
+def top_device_kernels(fn, n: int = 6) -> list:
+    """The ``n`` device kernels that take the most device time over one
+    call of ``fn`` (after one warm call), by name: [name, ms, launches]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, k = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) * 1e-3, k + 1)
+    return [[name[:80], ms, k] for name, (ms, k) in sorted(by_name.items(), key=lambda x: -x[1][0])[:n]]
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -852,7 +918,11 @@ def run_loop_path(name, dev) -> dict:
     ``_close_loop_from`` with candidates: its wall time, and at the first
     closure the similarity-aligned ATE of the frames so far just before and
     just after it, and a copy of the map and the detection it started from
-    (``loop_probe`` replays it)."""
+    (``loop_probe`` replays it); each tick of the global BA that a closure
+    starts (``_gba_tick``, one LM iteration of the PCG): its wall time and
+    the frame (or batch, or the final ``flush``) it stalled, and the ATE of
+    the frames so far just after the first closure's GBA folded in. Every
+    path ends with ``flush``, which drains a GBA still in flight."""
     from dialog_tpu_torch import loopclosing
     from dialog_tpu_torch.containers import FrameArrays
     from dialog_tpu_torch.datasets import synth
@@ -904,12 +974,29 @@ def run_loop_path(name, dev) -> dict:
                 harness(lambda: first.update(records=len(eng.trajectory), seconds=sec,
                                              ate_after_m=path_ate(eng, scene, True)))
 
+    ticks = []
+    tick, finish = eng._gba_tick, eng._finish_gba
+
+    def timed_tick():
+        if eng._gba is None:
+            return tick()
+        left = eng._gba["left"]
+        _, sec = _timed(tick)
+        ticks.append(dict(wall_index=len(walls), seconds=sec, left_before=left, folded=eng._gba is None))
+
+    def timed_finish():
+        finish()
+        if "ate_after_gba_m" not in first and "records" in first:
+            harness(lambda: first.update(gba_folded_at_records=len(eng.trajectory),
+                                         ate_after_gba_m=path_ate(eng, scene, True)))
+
     def step(fn):
         harness_s[0] = 0.0
         _, sec = _timed(fn)
         walls.append(sec - harness_s[0])
 
     eng._close_loop_from = timed_close
+    eng._gba_tick, eng._finish_gba = timed_tick, timed_finish
     loopclosing._guided_sim3_matches = counted_guided
     try:
         common.reset_launch_counts()
@@ -921,14 +1008,14 @@ def run_loop_path(name, dev) -> dict:
             batch = FrameArrays(*[torch.stack(x) for x in zip(*frames[i : i + BATCH])])
             step(lambda: eng.track_batch(batch, [float(i + j) / 30.0 for j in range(BATCH)]))
             counts["batches"] += 1
-        if name in ("loop_async", "loop_batch"):
-            step(eng.flush)
+        step(eng.flush)
         launches = dict(common.launches)
     finally:
         loopclosing._guided_sim3_matches = guided
+        del eng._gba_tick, eng._finish_gba, eng._close_loop_from
     n_frames = n_single + counts["batches"] * BATCH
     return dict(scene=scene, eng=eng, launches=launches, counts=counts, closures=closures, first=first,
-                walls=walls, n_frames=n_frames, n_single=n_single)
+                walls=walls, ticks=ticks, n_frames=n_frames, n_single=n_single)
 
 
 def check_loop_path(name, run, smi) -> dict:
@@ -942,7 +1029,13 @@ def check_loop_path(name, run, smi) -> dict:
     guided match and at least once per guided match over the path, kernel C
     at least once. Batched: one host pull per batch (the detection rides
     it), no synchronous detection, at least one evaluation. Per frame and
-    pipelined: synchronous detections."""
+    pipelined: synchronous detections. The global BA: at least one run
+    (``stats["gba_runs"]``), none in flight after ``flush``; printed beside:
+    the ATE just after the first closure's GBA folded in, the reference
+    engine's readings on the same frames with its GBA on (REFERENCE_LOOP),
+    the ticks' own wall times, and the worst frame (or batch) that a tick
+    stalled against the median of those that no tick touched (the final
+    ``flush`` apart: in ``loop_async`` it drains the whole GBA)."""
     from dialog_tpu_torch.system import OK
 
     eng, counts, launches = run["eng"], run["counts"], run["launches"]
@@ -966,10 +1059,25 @@ def check_loop_path(name, run, smi) -> dict:
         around = dict(per=f"frame up to {run['n_single']}, then batch of {BATCH}" if name == "loop_batch" else "frame",
                       at_closure_s=float(walls[first["wall_index"]]), at_closure_index=first["wall_index"],
                       median_s=float(np.median(walls)), worst_s=float(walls.max()), worst_index=int(walls.argmax()))
+    ticks = run["ticks"]
+    flush_at = len(walls) - 1
+    ticked = sorted({t["wall_index"] for t in ticks if t["wall_index"] != flush_at})
+    quiet = np.delete(walls[:flush_at], ticked)
+    gba = dict(runs=eng.stats["gba_runs"], obs_dropped=eng.stats["gba_obs_dropped"], ticks=len(ticks),
+               tick_s_median=float(np.median([t["seconds"] for t in ticks])) if ticks else None,
+               tick_s_max=max((t["seconds"] for t in ticks), default=None),
+               worst_ticked_wall_s=float(walls[ticked].max()) if ticked else None,
+               worst_ticked_index=int(ticked[int(np.argmax(walls[ticked]))]) if ticked else None,
+               median_quiet_wall_s=float(np.median(quiet)), flush_s=float(walls[flush_at]),
+               ticks_in_flush=sum(1 for t in ticks if t["wall_index"] == flush_at),
+               flush_tick_s=sum(t["seconds"] for t in ticks if t["wall_index"] == flush_at))
     out = dict(state=eng.state, frames=len(states), kf_count=eng.kf_count, ok_share=ok_share, ate_m=ate, span_m=span,
-               ate_gate_m=LOOP_ATE_SPAN * span, closed_slots_and_seqs=pairs, first_closure=first,
-               closures_tried=run["closures"], wall_at_closure=around, launches=launches, **counts)
+               ate_gate_m=LOOP_ATE_SPAN * span, reference=REFERENCE_LOOP[name], closed_slots_and_seqs=pairs,
+               first_closure=first, closures_tried=run["closures"], wall_at_closure=around, gba=gba,
+               launches=launches, **counts)
     say(f"{name} path: " + json.dumps(out) + f" on {smi}")
+    if eng.stats["gba_runs"] < 1 or eng._gba is not None:
+        fail(f"{name}: {eng.stats['gba_runs']} global BA runs, one still in flight after flush: {eng._gba is not None}")
     if not pairs:
         fail(f"{name}: no loop was closed")
     if not pairs[0][2] - pairs[0][3] > LOOP_MIN_GAP:
@@ -1005,8 +1113,11 @@ def loop_probe(name, run, dev, smi) -> dict:
     one ``solve_pose_graph`` at the map's K, one ``correct``, one whole
     ``_close_loop_from``; counts the stream syncs of that whole closure and
     of its ``compute_sim3`` (``torch.cuda.set_sync_debug_mode("warn")``, as
-    ``tools/sync_probe.py`` counts them). The guided match count must be
-    equal on the card and on a CPU copy of the map."""
+    ``tools/sync_probe.py`` counts them); then, on the closed copy, one
+    ``_start_gba`` and one ``_gba_tick`` of the global BA the closure starts,
+    and the stream syncs of a tick.
+    The guided match count must be equal on the card and on a CPU copy of
+    the map."""
     import copy
     import warnings
 
@@ -1068,6 +1179,7 @@ def loop_probe(name, run, dev, smi) -> dict:
 
     def whole():
         e = copy.copy(eng)
+        e.stats = dict(eng.stats)
         e._loop = copy.deepcopy(eng._loop)
         e._loop.last_eval_det_seq = first["det_seq"]
         e.m, e.ref_kf = _clone(m), first["ref_kf"]
@@ -1088,13 +1200,343 @@ def loop_probe(name, run, dev, smi) -> dict:
         return res, sum(1 for w in caught if "synchroniz" in str(w.message))
 
     e, out["close_loop_from_stream_syncs"] = stream_syncs(whole)
+    # the global BA the closure starts: its start (problem, snapshot, first cost) and one tick
+    out["start_gba_s"] = median_s(lambda: e._start_gba(e.gba_iters))
+    out["gba_tick_s"] = median_s(e._gba_tick)
+    # host reads in one tick: the CG's exit flag once every CG_CHECK_EVERY iterations, nothing per iteration
+    _, out["gba_tick_stream_syncs"] = stream_syncs(e._gba_tick)
+    out["gba_problem"] = dict(C=int(e._gba["prob"].R.shape[0]), P=int(e._gba["prob"].xyz.shape[0]),
+                              observations=int(e._gba["prob"].obs_ok.sum()), cg_iters=e._gba["cg_iters"])
     _, out["compute_sim3_stream_syncs"] = stream_syncs(
         lambda: LoopCloser(cfg).compute_sim3(m, det_kf, cand, generator=gen))
     if len(e._loop.closed_loops) <= len(eng._loop.closed_loops):
         fail(f"{name} probe: the replayed _close_loop_from did not close the loop")
+    from dialog_tpu_torch.optim.schur_pcg import CG_CHECK_EVERY
+
+    most = -(-e._gba["cg_iters"] // CG_CHECK_EVERY)
+    if out["gba_tick_stream_syncs"] > most:
+        fail(f"{name} probe: one GBA tick made {out['gba_tick_stream_syncs']} stream syncs, more than the "
+             f"{most} reads of the CG's exit flag ({e._gba['cg_iters']} iterations, one read every {CG_CHECK_EVERY})")
     say(f"{name} probe: " + json.dumps(out) + f" on {smi}")
     if n_card != n_cpu:
         fail(f"{name} probe: the guided match counts {n_card} on the card, {n_cpu} on the CPU")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# global bundle adjustment
+# ---------------------------------------------------------------------------
+
+
+def perturbed_map(m, seed: int = GBA_SEED, sigma: float = GBA_NOISE):
+    """The map with the translations of the keyframes a global BA optimizes
+    (valid, slot >= 2) and its valid landmarks moved by N(0, sigma) (numpy
+    draws from ``seed``), so that a solve from it has work to do."""
+    rng = np.random.default_rng(seed)
+    dev = m.kfs.t.device
+    opt = (m.kfs.valid & (torch.arange(m.kfs.valid.shape[0], device=dev) >= 2))[:, None]
+    dt = torch.from_numpy(rng.normal(0.0, sigma, tuple(m.kfs.t.shape)).astype(np.float32)).to(dev)
+    dx = torch.from_numpy(rng.normal(0.0, sigma, tuple(m.lms.xyz.shape)).astype(np.float32)).to(dev)
+    return m._replace(kfs=m.kfs._replace(t=m.kfs.t + dt * opt), lms=m.lms._replace(xyz=m.lms.xyz + dx * m.lms.valid[:, None]))
+
+
+def map_diff(a, b) -> dict:
+    """Largest differences of the valid keyframes' R, t and the valid
+    landmarks between two maps (on any devices), and the count of
+    observation slots whose outlier decision differs."""
+    va, vl = a.kfs.valid.cpu(), a.lms.valid.cpu()
+    d = lambda x, y, v: float((x.cpu() - y.cpu())[v].abs().max())  # noqa: E731
+    return dict(R=d(a.kfs.R, b.kfs.R, va), t=d(a.kfs.t, b.kfs.t, va), xyz=d(a.lms.xyz, b.lms.xyz, vl),
+                obs_lm_slots=int((a.kfs.obs_lm.cpu() != b.kfs.obs_lm.cpu()).sum()))
+
+
+def within(diff: dict) -> bool:
+    return diff["R"] < GBA_TOL_POSE and diff["t"] < GBA_TOL_POSE and diff["xyz"] < GBA_TOL_XYZ
+
+
+def exact_cg(prob) -> dict:
+    """A CG budget that solves the reduced camera system rather than
+    approximating it: as many iterations as it has unknowns (6 per optimized
+    camera), no early exit. The default budget (48 iterations, exit at a
+    relative M-norm residual of 1e-6, the reference's) leaves the step some
+    1e-3 off the exact one on the loop maps (PERF.md), and a comparison of
+    two sums taken in different orders then compares two truncations."""
+    return dict(cg_iters=6 * int(prob.cam_opt.sum()), cg_tol=0.0)
+
+
+def check_gba_dense(run, dev, smi) -> dict:
+    """``global_bundle_adjustment`` on the ``loop`` run's final map (K = 96
+    keyframe slots: the dense branch, kernel C at C = 96), moved off its
+    optimum (``perturbed_map``), GBA_ITERS iterations, on the card; against
+    ``solve_ba_pcg`` on the same problem with an exact CG (``exact_cg``, as
+    the CPU test holds the PCG to the dense solve), written back alike, and
+    against the same call on a CPU copy of the map (the plain reduction):
+    poses within GBA_TOL_POSE, landmarks within GBA_TOL_XYZ. Printed beside:
+    the PCG at its default CG budget against the dense solve. Launch counts
+    are reset just before the card's call and read just after: kernel C must
+    have run once per iteration."""
+    from dialog_tpu_torch.kernels import common
+    from dialog_tpu_torch.optim.global_ba import DENSE_SCHUR_MAX_CAMS, build_global_problem, global_bundle_adjustment
+    from dialog_tpu_torch.optim.local_ba import write_back
+    from dialog_tpu_torch.optim.schur_pcg import solve_ba_pcg
+
+    cfg = run["eng"].cfg
+    m = perturbed_map(run["eng"].m)
+    prob, n_dropped = build_global_problem(m, cfg)
+    C = prob.R.shape[0]
+    if C > DENSE_SCHUR_MAX_CAMS:
+        fail(f"gba_dense: the loop map has {C} keyframe slots, not the dense branch's at most {DENSE_SCHUR_MAX_CAMS}")
+    stats = {}
+    common.reset_launch_counts()
+    card, card_s = _timed(lambda: global_bundle_adjustment(m, cfg, iters=GBA_ITERS, stats=stats))
+    launches = dict(common.launches)
+    cpu, cpu_s = _timed(lambda: global_bundle_adjustment(_to(m, "cpu"), cfg, iters=GBA_ITERS))
+
+    def pcg(**cg):
+        R, t, xyz, _, n_cg = solve_ba_pcg(prob, cfg, iters=GBA_ITERS, chi2_th=cfg.chi2_mono, return_cg_iters=True,
+                                          **cg)
+        return write_back(m, prob, R, t, xyz, cfg, chi2_th=cfg.chi2_mono), int(n_cg)
+
+    exact = exact_cg(prob)
+    (pcg_map, n_cg), pcg_s = _timed(lambda: pcg(**exact))
+    (budget_map, n_budget), budget_s = _timed(pcg)
+    moved = map_diff(card, m)
+    out = dict(C=C, P=int(prob.xyz.shape[0]), O=int(prob.obs_cam.shape[1]), observations=int(prob.obs_ok.sum()),
+               keyframes=int(m.kfs.valid.sum()), landmarks=int(m.lms.valid.sum()), obs_dropped=stats["gba_obs_dropped"],
+               iters=GBA_ITERS, dense_card_s=card_s, dense_cpu_s=cpu_s, pcg_exact=exact, pcg_card_s=pcg_s,
+               pcg_cg_iters=n_cg, card_vs_cpu=map_diff(card, cpu), card_vs_pcg=map_diff(card, pcg_map),
+               pcg_default_budget=dict(card_s=budget_s, cg_iters=n_budget, vs_dense=map_diff(card, budget_map)),
+               moved=moved, launches=launches)
+    say("gba_dense: " + json.dumps(out) + f" on {smi}")
+    if launches["schur_reduce"] < GBA_ITERS:
+        fail(f"gba_dense: kernel C launched {launches['schur_reduce']} times in {GBA_ITERS} iterations")
+    if not (within(out["card_vs_cpu"]) and within(out["card_vs_pcg"])):
+        fail(f"gba_dense: the dense solve on the card differs from the CPU's or from the PCG's beyond "
+             f"{GBA_TOL_POSE} (poses) / {GBA_TOL_XYZ} (landmarks)")
+    if not moved["t"] > 10 * GBA_TOL_POSE:
+        fail("gba_dense: the solve did not move the poses: the check would show nothing")
+    return out
+
+
+def check_gba_capacity(dev, smi) -> dict:
+    """``tests/test_kitti_capacity.py`` on the card: the corridor map at the
+    KITTI00 preset (``synth_problem.build_corridor_map``: 1,100 live
+    keyframes of 2,048, 137,500 landmarks of 262,144, 4 observers each),
+    ``process_new_keyframe`` and a 3-iteration local BA at that occupancy,
+    ``build_global_problem`` (it must select the PCG), one
+    ``global_bundle_adjustment(iters=1)``. Gates: the new keyframe valid and
+    finite, every valid pose and landmark finite after the GBA, the median
+    corridor error below CORRIDOR_TOL. Measured on the problem: the wall and
+    device time of ``build_global_problem`` and of one PCG LM iteration (the
+    GBA's full CG budget), its CG iterations and the peak memory it takes,
+    and the wall time of one engine tick at this size (``cg_iters`` 16,
+    ``cg_tol`` 1e-4): the worst stall a tracked frame would meet."""
+    from dialog_tpu_torch import mapping
+    from dialog_tpu_torch.config import KITTI00
+    from dialog_tpu_torch.containers import FrameArrays
+    from dialog_tpu_torch.kernels import common
+    from dialog_tpu_torch.optim.global_ba import DENSE_SCHUR_MAX_CAMS, build_global_problem, global_bundle_adjustment
+    from dialog_tpu_torch.optim.local_ba import local_bundle_adjustment
+    from dialog_tpu_torch.optim.schur_pcg import lm_init_pcg, lm_steps_pcg
+    from dialog_tpu_torch.optim.synth_problem import build_corridor_map
+
+    cfg = KITTI00
+    m, build_map_s = _timed(lambda: build_corridor_map(cfg, n_kf=CORRIDOR_KFS, step=CORRIDOR_STEP, device=dev))
+    k = CORRIDOR_KFS - 1
+    kfs = m.kfs
+    frame = FrameArrays(uv=kfs.uv[k], uv_raw=kfs.uv[k], response=torch.where(kfs.feat_valid[k], 50.0, 0.0),
+                        octave=kfs.octave[k], angle=kfs.angle[k], desc=kfs.desc[k], valid=kfs.feat_valid[k],
+                        u_right=kfs.u_right[k], depth=kfs.depth[k])
+    t_new = torch.tensor([0.0, 0.0, -(CORRIDOR_KFS - 0.5) * CORRIDOR_STEP], device=dev)
+    common.reset_launch_counts()
+
+    def keyframe():
+        m2 = mapping.process_new_keyframe(m, frame, torch.eye(3, device=dev), t_new, kfs.obs_lm[k], CORRIDOR_KFS,
+                                          CORRIDOR_KFS / 10.0, CORRIDOR_KFS, k, cfg, spawn_depth=True,
+                                          n_neighbors=cfg.kf_tri_neighbors)
+        return local_bundle_adjustment(m2, CORRIDOR_KFS, cfg, iters=3)
+
+    m2, keyframe_s = _timed(keyframe)
+    if not (bool(m2.kfs.valid[CORRIDOR_KFS]) and bool(torch.isfinite(m2.kfs.t[CORRIDOR_KFS]).all())):
+        fail("gba_capacity: the keyframe inserted at occupancy is not valid and finite")
+    (prob, n_dropped), build_s = _timed(lambda: build_global_problem(m2, cfg))
+    build_dev = device_ms(lambda: build_global_problem(m2, cfg), (), reps=3, warm=1)["other_device_ms"]
+    C, (P, O) = prob.R.shape[0], prob.obs_cam.shape
+    if C <= DENSE_SCHUR_MAX_CAMS:
+        fail(f"gba_capacity: {C} cameras do not select the PCG")
+    carry0 = lm_init_pcg(prob, cfg, chi2_th=cfg.chi2_mono)
+    step = lambda **kw: lm_steps_pcg(prob, cfg, carry0, chi2_th=cfg.chi2_mono, **kw)  # noqa: E731
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    carry1, iter_s = _timed(step)
+    peak = torch.cuda.max_memory_allocated()
+    iter_dev = device_ms(step, (), reps=2, warm=0)["other_device_ms"]
+    _, tick_s = _timed(lambda: step(cg_iters=16, cg_tol=1e-4))
+    top_build = top_device_kernels(lambda: build_global_problem(m2, cfg))
+    top_iter = top_device_kernels(step)
+    stats = {}
+    m3, gba_s = _timed(lambda: global_bundle_adjustment(m2, cfg, iters=1, stats=stats))
+    launches = dict(common.launches)
+    vk, vl = m3.kfs.valid, m3.lms.valid
+    finite = bool(torch.isfinite(m3.kfs.R[vk]).all() and torch.isfinite(m3.kfs.t[vk]).all()
+                  and torch.isfinite(m3.lms.xyz[vl]).all())
+    t_err = (m3.kfs.t[:CORRIDOR_KFS, 2] + torch.arange(CORRIDOR_KFS, device=dev) * CORRIDOR_STEP).abs()
+    med = float(t_err.median())
+    out = dict(K=cfg.max_keyframes, L=cfg.max_landmarks, F=cfg.max_features, O=O, C=C, P=P,
+               keyframes=int(vk.sum()), landmarks=int(vl.sum()), observations=int(prob.obs_ok.sum()),
+               obs_dropped=int(n_dropped), build_map_s=build_map_s, keyframe_and_local_ba_s=keyframe_s,
+               build_global_problem_s=build_s, build_global_problem_device_ms=build_dev,
+               pcg_iteration_s=iter_s, pcg_iteration_device_ms=iter_dev,
+               pcg_iteration_cg_iters=int(carry1[5]) - int(carry0[5]), pcg_iteration_accepted=bool(carry1[4] < carry0[4]),
+               peak_memory_bytes=int(peak), peak_above_resident_bytes=int(peak - base),
+               engine_tick_s=tick_s, gba_iters_1_s=gba_s, median_corridor_error_m=med, finite=finite,
+               top_kernels_build_global_problem=top_build, top_kernels_pcg_iteration=top_iter, launches=launches)
+    say("gba_capacity: " + json.dumps(out) + f" on {smi}")
+    if not finite:
+        fail("gba_capacity: non-finite poses or landmarks after the global BA")
+    if not med < CORRIDOR_TOL:
+        fail(f"gba_capacity: median corridor error {med} m, not below {CORRIDOR_TOL} m")
+    return out
+
+
+def with_kf_slots(m, cfg, K: int):
+    """The same map in K keyframe slots: the first ones as they are, the
+    others empty as ``empty_map`` makes them (so the global problem has C = K
+    cameras, the same live ones)."""
+    from dialog_tpu_torch.containers import empty_map
+
+    k0 = m.kfs.valid.shape[0]
+    e = empty_map(cfg.replace(max_keyframes=K), device=m.kfs.R.device)
+
+    def grow(new, old):
+        new = new.clone()
+        new[:k0] = old
+        return new
+
+    covis = torch.zeros((K, K), dtype=m.covis.dtype, device=m.covis.device)
+    covis[:k0, :k0] = m.covis
+    return m._replace(kfs=type(m.kfs)(*[grow(a, b) for a, b in zip(e.kfs, m.kfs)]), covis=covis)
+
+
+# gba_sharded's solves: (name, the loop run it takes its map from, keyframe slots (None: the run's own), gated)
+SHARDED_JOBS = (("loop", "loop", None, True), ("loop_k256", "loop", 256, True), ("loop_tum", "loop_tum", None, False))
+
+
+def check_gba_sharded(loop_runs, dev, smi) -> dict:
+    """Landmark-sharded global BA on the card: two ranks
+    (``python -m dialog_tpu_torch.gba_rank``, two processes, a gloo group:
+    NCCL refuses two ranks on one device) each load the final map of
+    ``loop`` (K = 96: the dense branch, kernel C on each rank's half of the
+    landmarks, the camera sums all-reduced), the same map in 256 keyframe
+    slots (``loop_k256``: the PCG, with an exact CG, ``exact_cg``: one
+    all-reduce per CG iteration) and the final map of ``loop_tum`` (K = 256,
+    the PCG likewise), their landmark slots permuted from GBA_SEED (the engine
+    fills slots from the bottom: unpermuted, the second rank would hold no
+    live landmark) and moved off their optimum as in ``check_gba_dense``,
+    which the parent saved with ``save_map``, and run GBA_ITERS iterations.
+    The parent holds the two ranks against each other (bit for bit: every
+    decision is taken from all-reduced values) and, for ``loop`` and
+    ``loop_k256``, each rank's result against its own one-rank solve of the
+    same map on the card (GBA_TOL_POSE, GBA_TOL_XYZ). On the ``loop_tum`` map
+    (after D13's wrong correction, far from any optimum: the cost falls by a
+    third an iteration) the PCG's result moves by some 5e-4 under a mere
+    reordering of its sums, as much as between two one-rank solves on the
+    card (``index_add_``, D15), so there the difference to one rank and the
+    one-rank solve's own spread are printed, not gated. One card: two-card
+    scaling is not measured here."""
+    from pathlib import Path
+
+    from dialog_tpu_torch.containers import permute_landmarks, save_map
+    from dialog_tpu_torch.gba_rank import config_to_json, free_address, launch
+    from dialog_tpu_torch.kernels import common
+    from dialog_tpu_torch.optim.global_ba import DENSE_SCHUR_MAX_CAMS, build_global_problem, global_bundle_adjustment
+
+    out_dir = Path(__file__).resolve().parent / "build" / "gba_sharded"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs, one, repeat = [], {}, {}
+    common.reset_launch_counts()
+    for name, source, K, _ in SHARDED_JOBS:
+        eng = loop_runs[source]["eng"]
+        cfg, m = eng.cfg, eng.m
+        if K is not None:
+            cfg, m = cfg.replace(max_keyframes=K), with_kf_slots(m, cfg, K)
+        perm = torch.from_numpy(np.random.default_rng(GBA_SEED).permutation(cfg.max_landmarks))
+        m = perturbed_map(permute_landmarks(m, perm))
+        save_map(m, str(out_dir / f"{name}.npz"))
+        cg = exact_cg(build_global_problem(m, cfg)[0]) if cfg.max_keyframes > DENSE_SCHUR_MAX_CAMS else {}
+        jobs.append({"config": config_to_json(cfg), "map": str(out_dir / f"{name}.npz"), "iters": GBA_ITERS,
+                     "out": str(out_dir / f"{name}_out.npz"), "pcg": cg})
+        one[name] = _timed(lambda: global_bundle_adjustment(m, cfg, iters=GBA_ITERS, **cg))
+        repeat[name] = map_diff(one[name][0], global_bundle_adjustment(m, cfg, iters=GBA_ITERS, **cg))
+    launches = dict(common.launches)
+    spec = {"address": free_address(), "world": 2, "backend": "gloo", "device": dev.type, "jobs": jobs}
+    ranks, wall = _timed(lambda: launch(spec, str(out_dir / "job.json"), timeout=400,
+                                        cwd=Path(__file__).resolve().parent))
+    out = {"world": 2, "backend": "gloo", "ranks_wall_s": wall, "one_rank_launches": launches}
+    ok = True
+    for i, (name, _, _, gated) in enumerate(SHARDED_JOBS):
+        want, one_s = one[name]
+        got = [ranks[r][i] for r in range(2)]
+        same = all(np.array_equal(got[0][k], got[1][k]) for k in ("R", "t", "xyz", "obs_lm"))
+        vk, vl = want.kfs.valid.cpu().numpy(), want.lms.valid.cpu().numpy()
+        diff = dict(R=float(np.abs(got[0]["R"] - want.kfs.R.cpu().numpy())[vk].max()),
+                    t=float(np.abs(got[0]["t"] - want.kfs.t.cpu().numpy())[vk].max()),
+                    xyz=float(np.abs(got[0]["xyz"] - want.lms.xyz.cpu().numpy())[vl].max()),
+                    obs_lm_slots=int((got[0]["obs_lm"] != want.kfs.obs_lm.cpu().numpy()).sum()))
+        out[name] = dict(K=int(vk.shape[0]), pcg=jobs[i]["pcg"] or None, gated=gated, one_rank_s=one_s,
+                         one_rank_repeat=repeat[name], rank_s=[float(g["seconds"]) for g in got],
+                         rank_world=[int(g["world"]) for g in got], rows_held=[int(g["rows_held"]) for g in got],
+                         live_landmarks_held=[int(g["live_held"]) for g in got],
+                         rank_schur_launches=[int(g["schur_launches"]) for g in got],
+                         ranks_bitwise_equal=same, two_ranks_vs_one=diff)
+        ok &= same and all(int(g["world"]) == 2 and int(g["live_held"]) > 0 for g in got)
+        ok &= within(diff) if gated else bool(np.isfinite(list(diff.values())).all())
+    say("gba_sharded: " + json.dumps(out) + f" on {smi} (one card: two-card scaling not measured)")
+    if not ok:
+        fail("gba_sharded: the two ranks disagree with each other, or with the one-rank solve beyond tolerance")
+    if not all(n >= GBA_ITERS for n in out["loop"]["rank_schur_launches"]):
+        fail("gba_sharded: kernel C did not run on each rank of the dense branch")
+    return out
+
+
+def check_schur_large_c(dev, smi) -> dict:
+    """Kernel C at global BA's camera counts (the dense branch takes C up to
+    ``DENSE_SCHUR_MAX_CAMS``): for each C of LARGE_C a seeded problem from
+    ``synth_problem.make_problem`` with C cameras, LARGE_C_P landmark slots
+    of which LARGE_C_PTS live, each seen by LARGE_C_O cameras. The direct
+    outputs against the plain version at LAM_C (REL_TOL_C, as
+    ``check_schur``), a repeated call bit for bit, and the readings of
+    ``entry`` (device time, wrapper loop, plain version, bound)."""
+    from dialog_tpu_torch.config import EngineConfig
+    from dialog_tpu_torch.kernels.schur import camera_index, schur_reduce, schur_reduce_plain
+    from dialog_tpu_torch.optim.synth_problem import make_problem
+
+    out = {}
+    for C in LARGE_C:
+        cfg = EngineConfig(max_local_kfs=C - 2, max_fixed_kfs=2, max_local_lms=LARGE_C_P, max_obs_per_lm=LARGE_C_O)
+        prob = make_problem(seed=SOLVE_SEED, n_cams=C, n_pts=LARGE_C_PTS, cfg=cfg, device=dev)[0]
+        lam = torch.tensor(LAM_C, dtype=torch.float32, device=dev)
+        args = (prob.R, prob.t, prob.cam_opt, prob.xyz, prob.obs_cam, prob.obs_uv, prob.obs_w, lam,
+                cfg.fx, cfg.fy, cfg.cx, cfg.cy, cfg.chi2_mono)
+        idx = camera_index(prob.obs_cam, prob.obs_w, C)
+        got = schur_reduce(*args, cam_index=idx)
+        again = schur_reduce(*args, cam_index=idx)
+        want = schur_reduce_plain(*args)
+        torch.cuda.synchronize()
+        errs = {n: _rel_err(g, w, per_block=n == "Hll_inv")
+                for n, g, w in zip(["Hll_inv", "g_l", "Y", "Hcc", "g_c", "g_red", "S_pair"], got, want)}
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        t = entry("schur_reduce", lambda: schur_reduce(*args, cam_index=idx), lambda: schur_reduce_plain(*args),
+                  schur_bound(args, {}, got), reps=20)
+        out[C] = dict(P=LARGE_C_P, O=LARGE_C_O, live_landmarks=LARGE_C_PTS, rel_err=errs, bitwise_repeatable=repeat,
+                      max_abs_err=max(float((g - w).abs().max()) for g, w in zip(got, want)), **t)
+        say(f"kernel C schur_reduce at C={C} (P={LARGE_C_P}, O={LARGE_C_O}, seeded, lam={LAM_C}): "
+            f"{json.dumps(out[C])} on {smi}")
+        if not (max(errs.values()) <= REL_TOL_C and repeat):
+            fail(f"kernel C at C={C}: outputs {errs} beyond {REL_TOL_C} of the plain version, or not repeatable "
+                 f"({repeat})")
     return out
 
 
@@ -1373,6 +1815,18 @@ def schur_bound(args, kw, out) -> dict:
     return dict(bound(nbytes(*ins, *out), ops), live_observations=int(ok.sum()), optimized_observations=int(opt.sum()))
 
 
+def entry(name, fn, plain, limit, reps=20, **extra) -> dict:
+    """One kernel's readings at one shape: the device's own time per call
+    (``device_ms``), the pace of back-to-back wrapper calls and of the plain
+    version, the bound ``limit``, no library call, and whether the host sets
+    the wrapper loop's pace."""
+    out = device_ms(fn, DEVICE_KERNELS[name], reps=reps)
+    out.update(ms=out["device_ms"], wrapper_loop_ms=time_ms(fn, reps=reps), plain_ms=time_ms(plain, reps=reps),
+               library_ms=None, **limit, **extra)
+    out["host_paced"] = out["wrapper_loop_ms"] > HOST_PACED * out["device_ms"]
+    return out
+
+
 def kernel_times(images, cfg, prob, stereo_cfg, stereo_prob, dev, mono_stack, stereo_stack) -> dict:
     """For each kernel at its path's shapes: ``ms`` the device's own time per
     call (``device_ms``), ``wrapper_loop_ms`` and ``plain_ms`` the pace of
@@ -1410,13 +1864,6 @@ def kernel_times(images, cfg, prob, stereo_cfg, stereo_prob, dev, mono_stack, st
 
     def c_args(p, c):
         return (p.R, p.t, p.cam_opt, p.xyz, p.obs_cam, p.obs_uv, p.obs_w, lam, c.fx, c.fy, c.cx, c.cy, c.chi2_mono)
-
-    def entry(name, fn, plain, limit, reps=20, **extra):
-        out = device_ms(fn, DEVICE_KERNELS[name], reps=reps)
-        out.update(ms=out["device_ms"], wrapper_loop_ms=time_ms(fn, reps=reps), plain_ms=time_ms(plain, reps=reps),
-                   library_ms=None, **limit, **extra)
-        out["host_paced"] = out["wrapper_loop_ms"] > HOST_PACED * out["device_ms"]
-        return out
 
     times = {
         "fast_nms_rank": entry(
@@ -1529,6 +1976,11 @@ def main() -> int:
     loop_probe("loop", loop_runs["loop"], dev, smi)
     loop_probe("loop_tum", loop_runs["loop_tum"], dev, smi)
 
+    # global BA: the dense branch (kernel C at C = 96) against the PCG and the CPU, the landmark-sharded solve
+    # over two ranks against one (the KITTI00 capacity case comes after the kernels' timing)
+    gba_dense = check_gba_dense(loop_runs["loop"], dev, smi)
+    gba_sharded = check_gba_sharded(loop_runs, dev, smi)
+
     # kernels A and B against their plain versions (after the paths: these launches do not count)
     err_a = check_fast([("mono", images[0], cfg), ("stereo", simages[0][0], seng.cfg)], dev)
     mono_stack = np.stack(mb["frames"][8 : 8 + BATCH])
@@ -1537,6 +1989,10 @@ def main() -> int:
     err_b, err_m = check_hamming(dev)
 
     times = kernel_times(images, cfg, prob, seng.cfg, sprob, dev, mono_stack, stereo_stack)
+    times["schur_reduce"]["global_ba_C"] = check_schur_large_c(dev, smi)
+    # the KITTI00 capacity case profiles its own work: after the kernels' short sessions (ROADMAP D11: in one run
+    # the session after its profiled windows came back without a device record)
+    gba_capacity = check_gba_capacity(dev, smi)
 
     # the batched paths against their per-frame twins under the profiler, and relocalization on the mono_batch
     # engine. These windows (some 100,000 kernels each) come after the kernels' own short profiler
@@ -1548,7 +2004,9 @@ def main() -> int:
             "schur_reduce": err_c, "schur_reduce_stereo": err_cs}
     rels = {"schur_reduce": rel_c, "schur_reduce_stereo": rel_cs}
     by_path = {"mono": launches, "stereo": slaunches, "rgbd": rlaunches, "mono_batch": mb["launches"],
-               "stereo_batch": sb["launches"], **{name: run["launches"] for name, run in loop_runs.items()}}
+               "stereo_batch": sb["launches"], **{name: run["launches"] for name, run in loop_runs.items()},
+               "gba_dense": gba_dense["launches"], "gba_sharded": gba_sharded["one_rank_launches"],
+               "gba_capacity": gba_capacity["launches"]}
     # every launch is above these bounds: the shortest single kernel of the timing runs is the practical floor
     floor_ms = min(t["shortest_launch_ms"] for t in times.values())
     say(f"shortest single kernel launch seen while timing (the practical floor of any bound below it): "
@@ -1569,7 +2027,10 @@ def main() -> int:
             f"{t['wrapper_loop_ms']} ms{' (the host sets the pace)' if t['host_paced'] else ''}, plain "
             f"{t['plain_ms']} ms, bound {t['bound_ms']} ms by {t['bound_by']}"
             + (f"; camera index {t['cam_index_device_ms']} ms on the device, one solve of {t['solve_iters']} "
-               f"iterations {t['solve_device_ms']} ms" if "solve_device_ms" in t else ""))
+               f"iterations {t['solve_device_ms']} ms" if "solve_device_ms" in t else "")
+            + "".join(f"; at C={c}: device {g['device_ms']} ms {json.dumps(g['stages_ms'])}, wrapper loop "
+                      f"{g['wrapper_loop_ms']} ms, plain {g['plain_ms']} ms, bound {g['bound_ms']} ms by {g['bound_by']}"
+                      for c, g in t.get("global_ba_C", {}).items()))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

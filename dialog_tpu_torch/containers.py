@@ -257,6 +257,21 @@ def recount_lm_obs(m: MapState) -> MapState:
     return m._replace(lms=m.lms._replace(n_obs=counts))
 
 
+def permute_landmarks(m: MapState, perm: torch.Tensor) -> MapState:
+    """The same map with its landmark slots renumbered: new slot j holds old
+    landmark ``perm[j]`` (``perm`` a permutation of the L slots), and every
+    keyframe's ``obs_lm`` follows. The engine fills slots from the bottom,
+    so a global problem's live landmarks sit in its first rows; a random
+    ``perm`` spreads them over the ranks of a sharded solve."""
+    L = m.lms.xyz.shape[0]
+    perm = perm.to(device=m.lms.xyz.device, dtype=torch.int64)
+    new_of_old = torch.empty_like(perm)
+    new_of_old[perm] = torch.arange(L, device=perm.device)
+    obs = m.kfs.obs_lm
+    obs_new = torch.where(obs >= 0, new_of_old[obs.clamp(min=0).long()].to(obs.dtype), obs)
+    return m._replace(kfs=m.kfs._replace(obs_lm=obs_new), lms=LandmarkStore(*[x[perm] for x in m.lms]))
+
+
 # ---------------------------------------------------------------------------
 # Checkpoint: the reference's npz format (leaves in NamedTuple order,
 # descriptors stored as uint32), so either package loads the other's maps

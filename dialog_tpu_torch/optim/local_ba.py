@@ -22,6 +22,7 @@ from .. import geometry as geo
 from .. import ops
 from ..config import EngineConfig
 from ..containers import INVALID_ID, MapState
+from ..distributed import all_sum
 from ..kernels import schur as schur_kernel
 from .lm import all_finite, huber_weight
 
@@ -176,8 +177,18 @@ def _robust_weights(r, w_info, ok, delta2):
     return w, torch.sum(torch.where(ok, rho, 0.0)), chi2
 
 
+def global_cost(cost, R, t, xyz, group):
+    """(the cost summed over the ranks of ``group``, whether R, t and every
+    rank's landmarks are finite): one ``all_reduce`` of two numbers. Without
+    a group, the cost and ``all_finite(R, t, xyz)``."""
+    if group is None:
+        return cost, all_finite(R, t, xyz)
+    v = all_sum(torch.stack([cost, torch.sum(~torch.isfinite(xyz)).to(cost.dtype)]), group)
+    return v[0], (v[1] == 0) & all_finite(R, t)
+
+
 def solve_ba(prob: BAProblem, cfg: EngineConfig, iters: int = 10, chi2_th: float = 5.991,
-             lam0: float = 1e-4):
+             lam0: float = 1e-4, group=None):
     """Damped Schur-complement LM over the extracted problem.
 
     Returns (R [C,3,3], t [C,3], xyz [P,3], final robust cost). The
@@ -185,6 +196,13 @@ def solve_ba(prob: BAProblem, cfg: EngineConfig, iters: int = 10, chi2_th: float
     its plain version (which also covers ``lm_opt``) for CPU tensors; it
     carries the stereo (uR) row when the problem has one. The kernel's index
     of observations by camera is built once here, not at every iteration.
+
+    With a process group ``group`` the problem is this rank's slice of the
+    landmarks (``global_ba.shard_problem``): each rank reduces its own
+    landmarks (kernel C on the card), one ``all_reduce`` per iteration sums
+    the camera-side outputs (``Hcc``, ``g_c``, ``g_red``, ``S_pair``) and one
+    the new cost, and every rank solves the same camera system. (The
+    reference pins its einsum path on a mesh; ROADMAP, queue 3.)
     """
     fx, fy, cx, cy = cfg.fx, cfg.fy, cfg.cx, cfg.cy
     use_stereo = _use_stereo(prob, cfg)
@@ -204,7 +222,7 @@ def solve_ba(prob: BAProblem, cfg: EngineConfig, iters: int = 10, chi2_th: float
         # cheirality penalty: an observation pushed behind its camera would
         # otherwise drop out of the masked cost and look like an improvement
         n_behind = torch.sum((prob.obs_ok & ~ok).to(torch.float32))
-        return cost + 1e3 * n_behind
+        return global_cost(cost + 1e3 * n_behind, R, t, xyz, group)
 
     def step(R, t, xyz, lam):
         Hll_inv, g_l, Y, Hcc, g_c, g_red, S_pair = schur_kernel.schur_reduce(
@@ -213,6 +231,12 @@ def solve_ba(prob: BAProblem, cfg: EngineConfig, iters: int = 10, chi2_th: float
             obs_ur=prob.obs_ur if use_stereo else None, bf=bf, delta2_stereo=cfg.chi2_stereo,
             cam_index=cam_index,
         )
+        if group is not None:
+            cams = all_sum(torch.cat([Hcc.reshape(-1), g_c.reshape(-1), g_red.reshape(-1), S_pair.reshape(-1)]),
+                           group)
+            Hcc, g_c, g_red, S_pair = torch.split(cams, [36 * C, 6 * C, 6 * C, 36 * C * C])
+            Hcc, S_pair = Hcc.reshape(C, 6, 6), S_pair.reshape(C, 6, C, 6)
+            g_c, g_red = g_c.reshape(C, 6), g_red.reshape(C, 6)
         dcc = torch.diagonal(Hcc, dim1=-2, dim2=-1)
         Hcc_d = Hcc + (lam * torch.clamp(dcc, min=1e-9) + 1e-9)[..., None] * eye6
         S = torch.zeros((C, 6, C, 6), dtype=dt, device=dev)
@@ -230,12 +254,12 @@ def solve_ba(prob: BAProblem, cfg: EngineConfig, iters: int = 10, chi2_th: float
 
     R = geo.orthogonalize(prob.R)
     t, xyz = prob.t, prob.xyz
-    cost = cost_of(R, t, xyz)
+    cost = cost_of(R, t, xyz)[0]
     lam = torch.tensor(lam0, dtype=dt, device=dev)
     for _ in range(iters):
         R_new, t_new, xyz_new = step(R, t, xyz, lam)
-        new_cost = cost_of(R_new, t_new, xyz_new)
-        accept = (new_cost < cost) & all_finite(R_new, t_new, xyz_new)
+        new_cost, finite = cost_of(R_new, t_new, xyz_new)
+        accept = (new_cost < cost) & finite
         R = torch.where(accept, R_new, R)
         t = torch.where(accept, t_new, t)
         xyz = torch.where(accept, xyz_new, xyz)

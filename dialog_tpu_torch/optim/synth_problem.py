@@ -8,6 +8,13 @@ the reference's problem up to one f32 retraction. With ``stereo_frac > 0``
 the right-camera coordinate ``uR = u - bf/z``. ``chip_smoke.py`` takes its
 seeded local-BA windows for kernel C's solve check from here.
 
+``build_corridor_map`` builds a whole map at a given occupancy (the KITTI00
+preset's capacities by default): keyframes along a straight corridor, each
+making landmarks ahead of it and observing those of the keyframes just
+before it, as ``tests/test_kitti_capacity.py`` builds it for the reference
+(the same draws, so the same map), for ``chip_smoke.py``'s global-BA
+capacity phase.
+
 ``make_pose_graph`` builds a seeded Sim3 pose graph of the engine's shape
 (K keyframe slots, K tree + 4K covisibility + 1 loop edges): a ring of
 keyframes whose states carry odometry and scale drift, closed by its loop
@@ -21,7 +28,8 @@ import numpy as np
 import torch
 
 from .. import geometry as geo
-from ..config import EngineConfig
+from ..config import KITTI00, EngineConfig
+from ..containers import MapState, empty_map, recount_lm_obs
 from .local_ba import BAProblem
 from .pose_graph import PoseGraphProblem
 
@@ -187,3 +195,84 @@ def make_pose_graph(seed: int = 0, K: int = 256, n_live: int | None = None, drif
         e_i=torch.from_numpy(e_i).to(device), e_j=torch.from_numpy(e_j).to(device), m_s=f32(np.ones(E)),
         m_R=f32(m_R), m_t=f32(m_t), e_ok=torch.from_numpy(e_ok).to(device), e_w=f32(e_w),
     )
+
+
+def build_corridor_map(cfg: EngineConfig = KITTI00, seed: int = 0, n_kf: int = 1100, lm_per_kf: int = 125,
+                       n_observers: int = 4, step: float = 0.8, device="cuda") -> MapState:
+    """A consistent map at occupancy: keyframe k at z = k * ``step`` looking
+    +z (R = I), making ``lm_per_kf`` landmarks 6-14 m ahead and observing the
+    landmarks of keyframes k - ``n_observers`` + 1 .. k (banded
+    covisibility, as in forward driving), with 0.3 px of pixel noise. The
+    reference's ``build_corridor_map`` (``tests/test_kitti_capacity.py``) at
+    the default arguments: 1,100 live keyframes, 137,500 landmarks, 4
+    observers each. Like it, the keyframes keep no right-x or depth, so a
+    global problem of this map has monocular rows only. Built on the host
+    with numpy and moved to ``device`` once."""
+    rng = np.random.default_rng(seed)
+    K, F, L = cfg.max_keyframes, cfg.max_features, cfg.max_landmarks
+    n_lm = n_kf * lm_per_kf
+    if n_kf > K or n_lm > L or n_observers * lm_per_kf > F:
+        raise ValueError(f"{n_kf} keyframes of {n_observers} x {lm_per_kf} observations, {n_lm} landmarks do not "
+                         f"fit K={K}, F={F}, L={L}")
+
+    created_by = np.repeat(np.arange(n_kf), lm_per_kf)
+    xyz = np.zeros((n_lm, 3), np.float32)
+    xyz[:, 0] = rng.uniform(-8, 8, n_lm)
+    xyz[:, 1] = rng.uniform(-3, 3, n_lm)
+    xyz[:, 2] = created_by * step + rng.uniform(6, 14, n_lm)
+    desc = rng.integers(0, 2**32, (n_lm, 8), dtype=np.uint32).view(np.int32)
+    t_all = np.zeros((n_kf, 3), np.float32)    # world -> camera: X_c = X_w - C
+    t_all[:, 2] = -np.arange(n_kf) * step
+
+    obs_lm = np.full((K, F), -1, np.int32)
+    uv = np.zeros((K, F, 2), np.float32)
+    kdesc = np.zeros((K, F, 8), np.int32)
+    feat_valid = np.zeros((K, F), bool)
+    for k in range(n_kf):
+        ids = np.arange(max(0, k - (n_observers - 1)) * lm_per_kf, (k + 1) * lm_per_kf)
+        Xc = xyz[ids] + t_all[k]
+        z = Xc[:, 2]
+        u = cfg.fx * Xc[:, 0] / z + cfg.cx + rng.normal(0, 0.3, len(ids))
+        v = cfg.fy * Xc[:, 1] / z + cfg.cy + rng.normal(0, 0.3, len(ids))
+        ok = (z > 0.5) & (u >= 0) & (u < cfg.width) & (v >= 0) & (v < cfg.height)
+        n = len(ids)
+        obs_lm[k, :n] = np.where(ok, ids, -1)
+        uv[k, :n, 0] = u
+        uv[k, :n, 1] = v
+        kdesc[k, :n] = desc[ids]
+        feat_valid[k, :n] = ok
+
+    covis = np.zeros((K, K), np.int32)
+    for dk in range(1, n_observers):
+        i = np.arange(n_kf - dk)
+        covis[i, i + dk] = covis[i + dk, i] = (n_observers - dk) * lm_per_kf
+
+    m = empty_map(cfg, device="cpu")
+    kfs, lms = m.kfs, m.lms
+    kf_rows, lm_rows = slice(0, n_kf), slice(0, n_lm)
+    t = kfs.t.clone()
+    t[kf_rows] = torch.from_numpy(t_all)
+    parent, valid, seq, frame_id = kfs.parent.clone(), kfs.valid.clone(), kfs.seq.clone(), kfs.frame_id.clone()
+    parent[1:n_kf] = torch.arange(n_kf - 1, dtype=torch.int32)
+    valid[kf_rows] = True
+    seq[kf_rows] = torch.arange(n_kf, dtype=torch.int32)
+    frame_id[kf_rows] = torch.arange(n_kf, dtype=torch.int32)
+    kfs = kfs._replace(t=t, uv=torch.from_numpy(uv), desc=torch.from_numpy(kdesc),
+                       feat_valid=torch.from_numpy(feat_valid), obs_lm=torch.from_numpy(obs_lm), valid=valid,
+                       frame_id=frame_id, parent=parent, seq=seq)
+
+    def rows(x, v):
+        x = x.clone()
+        x[lm_rows] = v
+        return x
+
+    made_by = torch.from_numpy(created_by.astype(np.int32))
+    lms = lms._replace(xyz=rows(lms.xyz, torch.from_numpy(xyz)), desc=rows(lms.desc, torch.from_numpy(desc)),
+                       normal=rows(lms.normal, torch.tensor([0.0, 0.0, 1.0])), dmin=rows(lms.dmin, 1.0),
+                       dmax=rows(lms.dmax, 50.0), ref_kf=rows(lms.ref_kf, made_by),
+                       first_seq=rows(lms.first_seq, made_by), n_visible=rows(lms.n_visible, n_observers),
+                       n_found=rows(lms.n_found, n_observers), valid=rows(lms.valid, True))
+    m = recount_lm_obs(m._replace(kfs=kfs, lms=lms, covis=torch.from_numpy(covis),
+                                  num_kfs=torch.tensor(n_kf, dtype=torch.int32),
+                                  num_lms=torch.tensor(n_lm, dtype=torch.int32)))
+    return type(m)(*[type(x)(*[y.to(device) for y in x]) if hasattr(x, "_fields") else x.to(device) for x in m])

@@ -23,7 +23,17 @@ RANSAC, pose refinement), and loop closing (``loopclosing.LoopCloser``): a
 detection dispatched at each keyframe and evaluated at the next, Sim3
 RANSAC, the essential-graph correction. The per-frame and pipelined entries
 pull the detection themselves; ``track_batch`` takes it into the batch's own
-pull and evaluates it at the batch's resolve. Global BA is not here yet.
+pull and evaluates it at the batch's resolve.
+
+Global BA after each loop correction (reference: the transient
+``RunGlobalBundleAdjustment`` thread): asynchronously by default, one PCG LM
+iteration per tracked frame (``track_features``) or batch (``track_batch`` in
+state OK), folded into the live map when done (``optim.global_ba``); the
+pipelined entry ticks only through ``track_features``, so its GBA runs at
+``flush``, which drains it. With ``gba_async = False`` the closure solves
+it at once. Over a ``torch.distributed`` group with more than one rank
+(``distributed.initialize``) each rank solves on its slice of the
+landmarks.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import distributed
 from . import geometry as geo
 from . import mapping, matching, tracking
 from . import pnp as _pnp
@@ -43,8 +54,11 @@ from .containers import INVALID_ID, FrameArrays, MapMeta, MapState, empty_map, m
 from .frontend import extract_features
 from .init2view import initialize_two_view
 from .loopclosing import LoopCloser
+from .optim.global_ba import (GBASnapshot, build_global_problem, fold_gba_result, global_bundle_adjustment,
+                               shard_problem)
 from .optim.local_ba import local_bundle_adjustment
 from .optim.pose_only import pose_optimization
+from .optim.schur_pcg import lm_init_pcg, lm_steps_pcg
 from .stereo import depth_from_rgbd, stereo_match_frames
 
 NOT_INITIALIZED = "NOT_INITIALIZED"
@@ -96,7 +110,10 @@ class Engine:
         self.last_kf_frame_id = -(10**9)
         self.last_kf_tracked = 0
         self.kf_interval = cfg.max_frames_between_kf
-        self.stats = {"lm_dropped": 0, "kf_slot_full": 0}
+        # capacity events: landmarks the free list could not take, keyframes
+        # with no free slot, global-BA observations cut at max_obs_per_lm
+        # (RunLogger's gba_obs_dropped event waits for the instrumentation)
+        self.stats = {"lm_dropped": 0, "kf_slot_full": 0, "gba_obs_dropped": 0, "gba_runs": 0}
         self._init_frame: Optional[FrameArrays] = None
         self._init_ts = 0.0
         self._init_fid = 0
@@ -117,6 +134,13 @@ class Engine:
         self._vocab_trained_kfs = 0                   # kf_count at the last (re)train
         self._loop = LoopCloser(cfg)
         self.loop_closing_enabled = True
+        # global BA after a loop correction: chunked into one LM iteration per
+        # tracked frame or batch (``_gba_tick``) unless gba_async is off
+        self.gba_async = True
+        self.gba_iters = 8
+        self._gba: Optional[dict] = None
+        # a process group with more than one rank: global BA splits the landmarks over it
+        self.group = distributed.default_group()
         # pipelined tracking: frames (track_features_async) and batches
         # (track_batch) in flight, and the device-side tracking state they chain
         self._pending: list = []
@@ -159,7 +183,7 @@ class Engine:
 
     def track_features(self, frame: FrameArrays, timestamp: float) -> FrameRecord:
         """Track a pre-extracted feature frame (also the synthetic-data entry)."""
-        # (an in-flight global BA would advance by one chunk here: not ported yet)
+        self._gba_tick()
         if self.state == NOT_INITIALIZED:
             rec = self._initialize(frame, timestamp)
         else:
@@ -243,7 +267,10 @@ class Engine:
         resolve one batch behind. Returns the records this call resolved
         (possibly none)."""
         B = len(timestamps)
-        # (an in-flight global BA would advance by one chunk here: not ported yet)
+        if self.state == OK:
+            # an in-flight global BA advances by one chunk; its device work
+            # queues between the batches' dispatches
+            self._gba_tick()
         if self.state != OK or self._last_lm_ids is None:
             # per frame until healthy; the next batch re-enters batched mode
             self.flush()
@@ -356,7 +383,8 @@ class Engine:
             self._resolve_oldest()
         while self._pending_b:
             self._resolve_batch()
-        # (an in-flight global BA would run to its end here: not ported yet)
+        while self._gba is not None:
+            self._gba_tick()
         self._dev_state = None
 
     def _resolve_oldest(self) -> FrameRecord:
@@ -893,11 +921,68 @@ class Engine:
             lc = self._loop.compute_sim3(self.m, det_kf, c, generator=self._gen)
             if lc is None:
                 continue
+            # a global BA still in flight optimized the graph before this
+            # correction: abandon it (reference: mbStopGBA stops the running
+            # thread before CorrectLoop starts a new one)
+            self._gba = None
             self.m = self._loop.correct(self.m, det_kf, lc, self.cfg)
-            # (global BA of the corrected map would start here: not ported yet)
+            # refine the whole map after the correction
+            if self.gba_async:
+                self._start_gba(self.gba_iters)
+            else:
+                self.m = global_bundle_adjustment(self.m, self.cfg, iters=8, group=self.group, stats=self.stats)
             self._last_R = _host(self.m.kfs.R[self.ref_kf])
             self._last_t = _host(self.m.kfs.t[self.ref_kf])
             self._vel = None
             # in-flight device tracking state predates the correction
             self._dev_state = None
             break
+
+    # --- asynchronous loop-closure global BA ------------------------------
+
+    def _start_gba(self, iters: int) -> None:
+        """Snapshot the map and start a global BA that advances one LM
+        iteration per ``_gba_tick`` (reference: ``CorrectLoop`` starting
+        ``RunGlobalBundleAdjustment`` on a thread), so that a tracked frame
+        stalls for one PCG iteration, not for the whole solve. Reads the
+        count of cut observations back to the host once."""
+        prob, n_dropped = build_global_problem(self.m, self.cfg)
+        self.stats["gba_runs"] += 1
+        self.stats["gba_obs_dropped"] += int(n_dropped)
+        n_lms = prob.lm_ids.shape[0]
+        if self.group is not None:
+            prob = shard_problem(prob, self.group)
+        snap = GBASnapshot(self.m)
+        carry = lm_init_pcg(prob, self.cfg, chi2_th=self.cfg.chi2_mono, group=self.group)
+        # at capacity-scale maps a tick's stall is bounded by a truncated CG
+        # with a loose tolerance (inexact Newton); small maps keep the full budget
+        big = n_lms > 65536
+        self._gba = {"prob": prob, "snap": snap, "carry": carry, "left": int(iters), "n_lms": n_lms,
+                     "cg_iters": 16 if big else 48, "cg_tol": 1e-4 if big else 1e-6}
+
+    def _gba_tick(self) -> None:
+        """Advance the global BA in flight by one LM iteration; fold it in
+        after its last."""
+        if self._gba is None:
+            return
+        g = self._gba
+        g["carry"] = lm_steps_pcg(g["prob"], self.cfg, g["carry"], chi2_th=self.cfg.chi2_mono,
+                                  cg_iters=g["cg_iters"], cg_tol=g["cg_tol"], group=self.group)
+        g["left"] -= 1
+        if g["left"] <= 0:
+            self._finish_gba()
+
+    def _finish_gba(self) -> None:
+        """Fold the finished global BA into the live map and re-anchor tracking."""
+        g = self._gba
+        self._gba = None
+        R, t, xyz = g["carry"][:3]
+        xyz = distributed.gather_landmarks(xyz, g["n_lms"], self.group)
+        snap = g["snap"]
+        self.m = fold_gba_result(self.m, snap.kf_seq, snap.kf_valid, snap.lm_valid, snap.lm_first_seq, snap.lm_ref,
+                                 geo.orthogonalize(R), t, xyz)
+        self._last_R = _host(self.m.kfs.R[self.ref_kf])
+        self._last_t = _host(self.m.kfs.t[self.ref_kf])
+        self._vel = None
+        self._dev_state = None
+        self._refresh_kf_meta_blocking()

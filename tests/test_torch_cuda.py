@@ -37,6 +37,16 @@ within 5e-6 of a float64 one), and on a map the engine built on the card,
 the guided Sim3 match count (kernel B's mutual mode against the plain form)
 equal on the card and on the CPU, with ``compute_sim3`` from the same
 minimal sets giving the same outcome and a similarity within 1e-3.
+
+Global BA: kernel C at global BA's camera counts (C = 128 and 192, P =
+4,096 slots, O = 12) against its plain version as above; the Schur PCG on
+the card against the CPU on a seeded problem (three LM iterations: R, t and
+landmarks within 1e-4, the CG iterations within two); ``build_global_problem``
+on the card against the CPU, its integer fields and gathered floats bit for
+bit; two gloo ranks on CUDA tensors (``python -m dialog_tpu_torch.gba_rank``)
+against one rank on the card, for the dense branch and the PCG, within the
+CPU test's bounds (``tests/test_torch_distributed.py``: poses 1e-4,
+landmarks 1e-3).
 """
 
 import numpy as np
@@ -708,3 +718,74 @@ def test_guided_sim3_matches_and_compute_sim3_on_the_card(cuda):
             np.testing.assert_allclose(a.R, b.R, atol=1e-3, rtol=0)
             np.testing.assert_allclose(a.t, b.t, atol=1e-3, rtol=0)
     assert closed >= 1
+
+
+# --- global BA ---------------------------------------------------------------
+
+@pytest.mark.parametrize("C", [128, 192])
+def test_schur_kernel_at_global_ba_camera_counts(cuda, C):
+    args, kw = _random_problem(cuda, 7, C, 4096, 12, stereo=False)
+    got = schur.schur_reduce(*args)
+    _assert_reduction_matches(got, schur.schur_reduce_plain(*args))
+    assert all(torch.equal(a, b) for a, b in zip(got, schur.schur_reduce(*args)))
+
+
+def test_schur_pcg_on_the_card_follows_the_cpu(cuda):
+    from dialog_tpu_torch.optim.schur_pcg import solve_ba_pcg
+    from dialog_tpu_torch.optim.synth_problem import FIXTURE_CFG, make_problem
+
+    cpu = make_problem(seed=0, device="cpu")[0]
+    card = make_problem(seed=0, device=cuda)[0]
+    want = solve_ba_pcg(cpu, FIXTURE_CFG, iters=3, return_cg_iters=True)
+    got = solve_ba_pcg(card, FIXTURE_CFG, iters=3, return_cg_iters=True)
+    for g, w in zip(got[:3], want[:3]):
+        assert float((g.cpu() - w).abs().max()) < 1e-4
+    assert abs(int(got[4]) - int(want[4])) <= 2
+
+
+def test_build_global_problem_on_the_card_equals_the_cpu(cuda):
+    from dialog_tpu_torch.config import KITTI00
+    from dialog_tpu_torch.optim.global_ba import build_global_problem
+    from dialog_tpu_torch.optim.synth_problem import build_corridor_map
+
+    cfg = KITTI00.replace(max_keyframes=64, max_landmarks=4096, max_features=512, max_obs_per_lm=3)
+    m = build_corridor_map(cfg, n_kf=40, lm_per_kf=60, device="cpu")
+    rng = np.random.default_rng(0)
+    octave = torch.from_numpy(rng.integers(0, 8, m.kfs.octave.shape).astype(np.int32))
+    m = m._replace(kfs=m.kfs._replace(octave=octave))
+    want, n_want = build_global_problem(m, cfg)
+    got, n_got = build_global_problem(type(m)(*[type(x)(*[y.to(cuda) for y in x]) if hasattr(x, "_fields")
+                                                else x.to(cuda) for x in m]), cfg)
+    assert int(n_got) == int(n_want) > 0
+    for name in BAProblem._fields:
+        w, g = getattr(want, name), getattr(got, name)
+        assert (w is None) == (g is None), name
+        if w is not None:
+            assert torch.equal(g.cpu(), w), name
+
+
+@pytest.mark.parametrize("branch", ["dense", "pcg"])
+def test_two_gloo_ranks_on_the_card_match_one(cuda, tmp_path, branch):
+    import pathlib
+
+    from dialog_tpu_torch.containers import load_map, save_map
+    from dialog_tpu_torch.gba_rank import config_to_json, free_address, launch
+    from dialog_tpu_torch.optim.global_ba import global_bundle_adjustment
+    from test_torch_distributed import BRANCHES, engine_map
+
+    cfg, m = engine_map(BRANCHES[branch])
+    save_map(m, str(tmp_path / "m.npz"))
+    want = global_bundle_adjustment(load_map(cfg, str(tmp_path / "m.npz"), device=cuda), cfg, iters=4)
+    job = {"config": config_to_json(cfg), "map": str(tmp_path / "m.npz"), "iters": 4, "out": str(tmp_path / "o.npz")}
+    spec = {"address": free_address(), "world": 2, "backend": "gloo", "device": "cuda", "jobs": [job]}
+    got = [r[0] for r in launch(spec, str(tmp_path / "job.json"), timeout=300,
+                                cwd=pathlib.Path(__file__).resolve().parent.parent)]
+    assert [int(g["world"]) for g in got] == [2, 2]
+    vk, vl = want.kfs.valid.cpu().numpy(), want.lms.valid.cpu().numpy()
+    for g in got:
+        np.testing.assert_allclose(g["R"][vk], want.kfs.R.cpu().numpy()[vk], atol=1e-4)
+        np.testing.assert_allclose(g["t"][vk], want.kfs.t.cpu().numpy()[vk], atol=1e-4)
+        np.testing.assert_allclose(g["xyz"][vl], want.lms.xyz.cpu().numpy()[vl], atol=1e-3)
+    if branch == "dense":
+        assert all(int(g["schur_launches"]) >= 4 for g in got)
+

@@ -2,14 +2,14 @@
 
 The JAX engine and the port's (on the CPU) track the 260 feature frames of
 ``tests/test_loopclosing.py``'s orbit under its configuration
-(``profile_main_path.loop_config``), loop closing on; the reference's global
-BA after a closure is switched off (``_start_gba`` a no-op), as the port has
-none yet. The port draws its two-view minimal sets from the reference's key
+(``profile_main_path.loop_config``), loop closing on and the global BA after
+each closure on (asynchronous, one LM iteration a frame) in both. The port draws its two-view minimal sets from the reference's key
 stream; its Sim3 RANSAC draws its own.
 
 Gates: both close a loop, the first between the same keyframe insertion
-numbers; following ROADMAP D1, the two trajectories (similarity-aligned to
-the ground truth) differ less than either differs from it.
+numbers, and both run a global BA after it and fold it in; following ROADMAP
+D1, the two trajectories (similarity-aligned to the ground truth) differ less
+than either differs from it.
 
 Marked ``slow``: the port's engine takes some 10 minutes on two CPU threads
 for the 260 frames, and no shorter orbit closes a loop in the reference
@@ -46,7 +46,6 @@ def engines():
     ts = tsynth.make_scene(seed=LOOP_SEED, n_points=LOOP_POINTS, n_frames=LOOP_FRAMES, trajectory="loop",
                            cfg=TConfig(**kw), period=LOOP_PERIOD)
     jeng = JEngine(jcfg)
-    jeng._start_gba = lambda iters: None
     teng = TEngine(TConfig(**kw), device="cpu")
     for i in range(LOOP_FRAMES):
         jeng.track_features(jsynth.observe(js, i, noise_px=LOOP_NOISE_PX, desc_flips=LOOP_DESC_FLIPS)[0], i / 30.0)
@@ -55,6 +54,8 @@ def engines():
         for i in range(LOOP_FRAMES):
             teng.track_features(tsynth.observe(ts, i, noise_px=LOOP_NOISE_PX, desc_flips=LOOP_DESC_FLIPS,
                                                device="cpu")[0], i / 30.0)
+    jeng.flush()
+    teng.flush()
     return js, jeng, teng
 
 
@@ -65,6 +66,12 @@ def test_both_close_the_loop_at_the_same_keyframes(engines):
     (ja, jb), (ta, tb) = jeng._loop.closed_loops[0], teng._loop.closed_loops[0]
     assert (int(jseq[ja]), int(jseq[jb])) == (int(tseq[ta]), int(tseq[tb]))
     assert int(tseq[ta]) - int(tseq[tb]) > 20
+
+
+def test_both_run_the_global_ba_after_the_closure(engines):
+    _, jeng, teng = engines
+    assert jeng.stats["gba_runs"] >= 1 and teng.stats["gba_runs"] >= 1
+    assert jeng._gba is None and teng._gba is None
 
 
 def test_trajectories_agree_better_than_with_the_truth(engines):

@@ -4,8 +4,9 @@ A child interpreter in which ``import jax`` and ``import dialog_tpu`` fail
 imports ``dialog_tpu_torch``, every one of its submodules and
 ``chip_smoke``, then extracts features from a 160x120 image with the port's
 plain frontend (one image and a batch of two), trains and queries a small
-vocabulary, solves a PnP problem, a Sim3 RANSAC problem and a seeded Sim3
-pose graph. A static check finds no JAX import and no reference to the
+vocabulary, solves a PnP problem, a Sim3 RANSAC problem, a seeded Sim3
+pose graph and a seeded BA problem by the Schur PCG, and folds the result
+into a map. A static check finds no JAX import and no reference to the
 JAX package in the port's sources or in ``chip_smoke.py``.
 """
 
@@ -62,6 +63,18 @@ pg = synth_problem.make_pose_graph(seed=0, K=12, device="cpu")
 cost0 = pose_graph._system(pg, pg.s, pg.R, pg.t)[0]
 assert float(pose_graph.solve_pose_graph(pg, iters=5)[3]) < float(cost0)
 assert {"dialog_tpu_torch.sim3", "dialog_tpu_torch.loopclosing", "dialog_tpu_torch.optim.pose_graph"} <= set(names)
+from dialog_tpu_torch.optim import global_ba, schur_pcg
+bp = synth_problem.make_problem(seed=0, device="cpu")[0]
+Rb, tb, xb, cb, ncg = schur_pcg.solve_ba_pcg(bp, synth_problem.FIXTURE_CFG, iters=3, return_cg_iters=True)
+assert int(ncg) > 0 and bool(torch.isfinite(xb).all())
+from dialog_tpu_torch.containers import empty_map
+m0 = empty_map(synth_problem.FIXTURE_CFG, device="cpu")
+snap = global_ba.GBASnapshot(m0)
+m1 = global_ba.fold_gba_result(m0, snap.kf_seq, snap.kf_valid, snap.lm_valid, snap.lm_first_seq, snap.lm_ref,
+                               m0.kfs.R, m0.kfs.t + 1.0, m0.lms.xyz)
+assert bool((m1.kfs.t == m0.kfs.t).all())   # no valid keyframe: nothing folds in
+assert {"dialog_tpu_torch.optim.schur_pcg", "dialog_tpu_torch.optim.global_ba", "dialog_tpu_torch.distributed",
+        "dialog_tpu_torch.gba_rank"} <= set(names)
 assert "jax" not in [m for m in sys.modules if sys.modules[m] is not None]
 print(len(names), int(fr.valid.sum()), tuple(fr.desc.shape))
 """

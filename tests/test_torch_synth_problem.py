@@ -94,3 +94,22 @@ def test_seeded_windows_have_the_paths_shapes():
     assert (int(st.obs_ok.sum()), int(st.cam_opt.sum())) == (2916, 4)
     share = float((st.obs_ur[st.obs_ok] >= 0).float().mean())
     assert 0.45 < share < 0.55
+
+
+def test_corridor_map_matches_reference():
+    """``build_corridor_map`` at the KITTI00 preset's capacities (20 live
+    keyframes here) is the reference capacity test's map, field by field."""
+    import jax
+
+    from test_kitti_capacity import build_corridor_map as ref_corridor
+    from dialog_tpu_torch.interop import map_to_numpy
+
+    want = jax.device_get(ref_corridor(n_kf=20))
+    got = map_to_numpy(tsp.build_corridor_map(KITTI00, n_kf=20, device="cpu"))
+    for part in ("kfs", "lms"):
+        for name in getattr(want, part)._fields:
+            w, g = np.asarray(getattr(getattr(want, part), name)), got[part][name]
+            assert w.shape == g.shape and w.dtype == g.dtype, (part, name)
+            np.testing.assert_array_equal(g, w, err_msg=f"{part}.{name}")
+    for name in ("covis", "num_kfs", "num_lms", "lm_dropped"):
+        np.testing.assert_array_equal(got[name], np.asarray(getattr(want, name)), err_msg=name)

@@ -17,12 +17,14 @@ the port (``dialog_tpu_torch.profile_main_path``):
   ``chip_smoke.py``'s loop phase (``LOOP_FRAMES`` feature frames of
   ``loop_scene`` under ``loop_config``, the reference loop test's own
   configuration; ``--tum``: the TUM-class mono configuration with
-  ``max_frames_between_kf`` 6), loop closing on. Global BA after a closure is
-  switched off (``_start_gba`` a no-op), as the port has none yet. Prints
-  the closed pairs with their keyframes' insertion numbers, the
+  ``max_frames_between_kf`` 6), loop closing on, and the global BA after
+  each closure on, as in both engines (``--no-gba``: off, ``_start_gba`` a
+  no-op, as the port's runs were compared before it had one). Prints the
+  closed pairs with their keyframes' insertion numbers, the
   similarity-aligned ATE of the frames so far just before and just after the
-  first correction, the OK share and the whole run's ATE against the
-  reference test's gate (5% of the span). ``--batch B``: the
+  first correction and just after its global BA folded in, the GBA runs, the
+  OK share and the whole run's ATE against the reference test's gate (5% of
+  the span). ``--batch B``: the
   first 8 frames one by one, then batches of B through ``track_batch``, and
   ``flush``; ``--pipelined``: every frame through ``track_features_async``,
   and ``flush``; ``--period P``: a lap of P frames (the run keeps its 1.3
@@ -89,7 +91,7 @@ def run_images(workload: str) -> dict:
             "ok_frames": int(ok.sum()), "first_ok": int(np.argmax(ok)) if ok.any() else -1, "ate_m": ate}
 
 
-def run_loop(tum: bool, batch: int, pipelined: bool, period: int) -> dict:
+def run_loop(tum: bool, batch: int, pipelined: bool, period: int, gba: bool = True) -> dict:
     from dialog_tpu.containers import FrameArrays
     from dialog_tpu.datasets import synth
 
@@ -101,7 +103,8 @@ def run_loop(tum: bool, batch: int, pipelined: bool, period: int) -> dict:
     frames = [synth.observe(scene, i, noise_px=pmp.LOOP_NOISE_PX, desc_flips=pmp.LOOP_DESC_FLIPS)[0]
               for i in range(n_frames)]
     eng = Engine(cfg)
-    eng._start_gba = lambda iters: None
+    if not gba:
+        eng._start_gba = lambda iters: None
     t0 = time.perf_counter()
     around = {}
     # per frame throughout, or the first 8 frames one by one and then batches of ``batch``
@@ -112,6 +115,7 @@ def run_loop(tum: bool, batch: int, pipelined: bool, period: int) -> dict:
     for i, b in steps:
         n_closed = len(eng._loop.closed_loops)
         before = _ate(eng, scene, with_scale=True)[0] if n_closed == 0 else None
+        in_flight = eng._gba is not None
         if i >= n_single:
             eng.track_batch(FrameArrays(*[jnp.stack(x) for x in zip(*frames[i : i + b])]),
                             [float(i + j) / 30.0 for j in range(b)])
@@ -122,17 +126,22 @@ def run_loop(tum: bool, batch: int, pipelined: bool, period: int) -> dict:
         if n_closed == 0 and eng._loop.closed_loops:
             around = {"first_closure_frame": i, "ate_before_m": before,
                       "ate_after_m": _ate(eng, scene, with_scale=True)[0]}
+        if in_flight and eng._gba is None and "ate_after_gba_m" not in around:
+            around.update(first_gba_folded_frame=i, ate_after_gba_m=_ate(eng, scene, with_scale=True)[0])
         if eng.trajectory and (len(eng._loop.closed_loops) > n_closed or i % 20 < b):
             rec = eng.trajectory[-1]   # the last resolved frame
             print(f"frame {i}: {rec.state} tracked={rec.n_tracked} kfs={eng.kf_count} "
                   f"closed={eng._loop.closed_loops} t={time.perf_counter() - t0:.1f}s", flush=True)
+    in_flight = eng._gba is not None
     eng.flush()
+    if in_flight and "ate_after_gba_m" not in around:
+        around.update(first_gba_folded_frame="flush", ate_after_gba_m=_ate(eng, scene, with_scale=True)[0])
     ate, span, share = _ate(eng, scene, with_scale=True)
     seq = np.asarray(eng.m.kfs.seq)
     closed = [[int(a), int(b), int(seq[a]), int(seq[b])] for a, b in eng._loop.closed_loops]
     states = [r.state for r in eng.trajectory]
     return {"workload": "loop", "config": "tum" if tum else "loop test", "batch": batch,
-            "pipelined": pipelined, "period": period,
+            "pipelined": pipelined, "period": period, "gba": gba, "gba_runs": eng.stats["gba_runs"],
             "frames": len(states), "state": eng.state, "kf_count": eng.kf_count, "closed_slots_and_seqs": closed,
             **around, "ok_share": share, "ok_share_all_frames": states.count("OK") / len(states), "ate_m": ate,
             "span_m": span, "ate_gate_m": None if span is None else 0.05 * span,
@@ -199,9 +208,10 @@ def main() -> int:
     ap.add_argument("--pipelined", action="store_true", help="loop: every frame through track_features_async")
     ap.add_argument("--period", type=int, default=pmp.LOOP_PERIOD,
                     help="loop: frames a lap (the run keeps LOOP_FRAMES / LOOP_PERIOD laps)")
+    ap.add_argument("--no-gba", action="store_true", help="loop: no global BA after a closure")
     args = ap.parse_args()
     if args.workload == "loop":
-        out = run_loop(args.tum, args.batch, args.pipelined, args.period)
+        out = run_loop(args.tum, args.batch, args.pipelined, args.period, gba=not args.no_gba)
     elif args.workload == "mono_batch":
         out = run_mono_batch()
     else:
