@@ -87,7 +87,24 @@ Needs one CUDA card and nvcc; exits non-zero without them. It
    time the card could take for the same inputs (bytes over 3.35 TB/s or
    operations over 67 TFLOP/s f32, whichever is larger); and kernel C at
    global BA's camera counts (C = 96, 128 and 192 on seeded problems of
-   16,384 landmark slots, O = 12), held against its plain version first.
+   16,384 landmark slots, O = 12), held against its plain version first;
+12. checks determinism and the engine's other modes: ``mono`` and ``loop``
+   once more on fresh engines from the same seeds, every record and every
+   map leaf bit for bit against the first runs (``loop``'s global BA
+   included); on the ``loop`` engine the PLY export and the two trajectory
+   writers parsed back, a checkpoint saved and resumed on a fresh engine
+   (LOST, relocalized, OK after 20 frames), localization mode (no new
+   keyframe or landmark over 20 frames) and ``reset``;
+13. checks block bundle adjustment. ``block_sharded``: two gloo ranks on the
+   card against one on a corridor of ``tests/test_block_ba.py``'s size, bit
+   for bit. Kernel C's frozen-landmark mode (``lm_opt``) against its plain
+   version on a block problem of the KITTI00 corridor and on the stereo
+   window with a seeded half of its landmarks frozen, and timed at the
+   block shape (C = 64, P = 16,384, O = 12). ``block_capacity``, the slice's
+   full-width path: the KITTI00 corridor of ``gba_capacity`` moved off its
+   truth block by block, ``Engine.block_refine`` with 32 blocks, 2 rounds of
+   6 iterations: no owned keyframe left out, the camera-centre error down
+   2.5-fold, kernel C's frozen mode launched exactly 384 times.
 
 Each path runs on a fresh engine, with every kernel's launch count reset just
 before it and read just after (``hamming_best2``, the standalone form of
@@ -183,6 +200,12 @@ CORRIDOR_KFS = 1100
 CORRIDOR_STEP = 0.8
 CORRIDOR_TOL = 0.5      # metres: median |t_z + k x step| of the corridor's keyframes after the GBA
 # kernel C at global BA's camera counts: seeded problems of P slots (LARGE_C_PTS live landmarks, each in O cameras)
+# block bundle adjustment at the KITTI00 preset: the corridor of gba_capacity, 32 blocks of 35 keyframes
+BLOCK_ARGS = dict(n_blocks=32, rounds=2, iters=6, cams_pb=64, lms_pb=8192)
+BLOCK_LMS_PER_KF = 125
+BLOCK_SEED = 17
+BLOCK_GAIN = 2.5        # the camera-centre error falls at least this many times (tests/test_block_ba.py's gate)
+MODES_FRAMES = 20       # frames tracked after a checkpoint resume, and again in localization mode
 LARGE_C = (96, 128, 192)
 LARGE_C_P, LARGE_C_O, LARGE_C_PTS = 16384, 12, 6000
 
@@ -198,6 +221,7 @@ DEVICE_KERNELS = {
     "hamming_mutual": ("hamming_scan_kernel", "hamming_mutual_kernel"),
     "schur_reduce": ("schur_obs", "schur_cams"),
     "schur_reduce_stereo": ("schur_obs", "schur_cams"),
+    "schur_reduce_frozen": ("schur_obs", "schur_cams"),
 }
 HOST_PACED = 1.5        # a wrapper loop this many times slower than the device's own time is paced by the host
 
@@ -208,6 +232,7 @@ KERNELS = {
     "hamming_mutual": ("dialog_tpu_torch/csrc/hamming.cu", "dialog_tpu/kernels/hamming.py:131"),
     "schur_reduce": ("dialog_tpu_torch/csrc/schur.cu", "dialog_tpu/kernels/schur.py:293"),
     "schur_reduce_stereo": ("dialog_tpu_torch/csrc/schur.cu", "dialog_tpu/kernels/schur.py:293"),
+    "schur_reduce_frozen": ("dialog_tpu_torch/csrc/schur.cu", "dialog_tpu/kernels/schur.py:293"),
 }
 
 
@@ -1541,6 +1566,318 @@ def check_schur_large_c(dev, smi) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# block bundle adjustment, determinism and the engine's other modes
+# ---------------------------------------------------------------------------
+
+
+def block_corridor(dev):
+    """The KITTI00 corridor of ``gba_capacity`` (``build_corridor_map``:
+    CORRIDOR_KFS live keyframes, BLOCK_LMS_PER_KF landmarks each) moved off
+    its truth block by block (``synth_problem.perturb_block_local`` from
+    BLOCK_SEED, with the blocks ``block_refine`` makes of it at BLOCK_ARGS):
+    (map, ground-truth keyframe translations, block size)."""
+    from dialog_tpu_torch.config import KITTI00
+    from dialog_tpu_torch.optim.synth_problem import build_corridor_map, perturb_block_local
+
+    m = build_corridor_map(KITTI00, n_kf=CORRIDOR_KFS, lm_per_kf=BLOCK_LMS_PER_KF, step=CORRIDOR_STEP, device=dev)
+    blk = -(-CORRIDOR_KFS // BLOCK_ARGS["n_blocks"])
+    t_gt = m.kfs.t[:CORRIDOR_KFS].clone()
+    return perturb_block_local(m, CORRIDOR_KFS, BLOCK_LMS_PER_KF, blk, seed=BLOCK_SEED), t_gt, blk
+
+
+def centre_error(m, t_gt) -> float:
+    """Mean camera-centre error of the corridor's keyframes (its truth: R = I)."""
+    n = t_gt.shape[0]
+    c = -torch.einsum("kij,ki->kj", m.kfs.R[:n], m.kfs.t[:n])
+    return float((c + t_gt).norm(dim=1).mean())
+
+
+def check_block_capacity(corridor, dev, smi) -> dict:
+    """``Engine.block_refine`` at the KITTI00 preset on ``block_corridor``:
+    BLOCK_ARGS (32 blocks of 35 owned keyframes and some 3 boundary ones,
+    some 4,400 owned landmarks; each block a kernel C call at C = 64, P =
+    16,384, O = 12 in its frozen-landmark mode, the stereo variant since
+    KITTI00 has bf > 0). Gates: no owned keyframe left out, every valid pose
+    and landmark finite, the mean camera-centre error down at least
+    BLOCK_GAIN-fold (the reference test's gate), and ``schur_reduce_frozen``
+    launched exactly rounds x 2 x n_blocks / 2 x iters times, no other kernel
+    C launch. Measured: the refine's wall time and peak memory, then on the
+    refined map one round's wall and device time (printed per half-step) with
+    its top device kernels, and one block solve's wall time."""
+    from dialog_tpu_torch.config import KITTI00
+    from dialog_tpu_torch.kernels import common
+    from dialog_tpu_torch.optim.block_ba import block_bundle_adjustment, block_problem, build_block_problems
+    from dialog_tpu_torch.optim.local_ba import solve_ba
+    from dialog_tpu_torch.system import Engine
+
+    cfg = KITTI00
+    m, t_gt, blk = corridor
+    eng = Engine(cfg, device=dev)
+    eng.m, eng.kf_count, eng.ref_kf = m, CORRIDOR_KFS, CORRIDOR_KFS - 1
+    err0 = centre_error(m, t_gt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    common.reset_launch_counts()
+    _, refine_s = _timed(lambda: eng.block_refine(**BLOCK_ARGS))
+    launches = dict(common.launches)
+    peak = torch.cuda.max_memory_allocated()
+    err1 = centre_error(eng.m, t_gt)
+    vk, vl = eng.m.kfs.valid, eng.m.lms.valid
+    finite = bool(torch.isfinite(eng.m.kfs.R[vk]).all() and torch.isfinite(eng.m.kfs.t[vk]).all()
+                  and torch.isfinite(eng.m.lms.xyz[vl]).all())
+    a = BLOCK_ARGS
+    want_launches = a["rounds"] * 2 * (a["n_blocks"] // 2) * a["iters"]
+    probs, cam_own, _, _ = build_block_problems(eng.m, cfg, a["n_blocks"], a["cams_pb"], a["lms_pb"])
+
+    def one_round():   # two half-steps
+        return block_bundle_adjustment(eng.m, cfg, **{**a, "rounds": 1})
+
+    _, round_s = _timed(one_round)
+    round_dev = device_ms(one_round, DEVICE_KERNELS["schur_reduce_frozen"], reps=1, warm=0)
+    top_round = top_device_kernels(one_round, n=8)
+    _, solve_s = _timed(lambda: solve_ba(block_problem(probs, 1), cfg, iters=a["iters"], chi2_th=cfg.chi2_mono))
+    live = (probs.lm_ids < cfg.max_landmarks)
+    out = dict(K=cfg.max_keyframes, L=cfg.max_landmarks, F=cfg.max_features, keyframes=int(vk.sum()),
+               landmarks=int(vl.sum()), block_size=blk, **BLOCK_ARGS, C=int(probs.cam_slots.shape[1]),
+               P=int(probs.lm_ids.shape[1]), O=int(probs.obs_cam.shape[2]),
+               owned_cameras_per_block=[int(x) for x in cam_own.sum(1)],
+               cameras_per_block=[int(x) for x in (probs.cam_slots < cfg.max_keyframes).sum(1)],
+               owned_landmarks_per_block=[int(x) for x in (live & probs.lm_opt).sum(1)],
+               boundary_landmarks_per_block=[int(x) for x in (live & ~probs.lm_opt).sum(1)],
+               observations_per_block=[int(x) for x in probs.obs_ok.sum((1, 2))],
+               block_ba_obs_dropped=eng.stats["block_ba_obs_dropped"],
+               block_ba_kf_dropped=eng.stats["block_ba_kf_dropped"], centre_error_before_m=err0,
+               centre_error_after_m=err1, gain=err0 / max(err1, 1e-12), finite=finite, refine_s=refine_s,
+               half_step_s=round_s / 2, half_step_device_ms=(round_dev["device_ms"] + round_dev["other_device_ms"]) / 2,
+               half_step_kernel_c_device_ms=round_dev["device_ms"] / 2, top_kernels_round=top_round,
+               block_solve_s=solve_s,
+               peak_memory_bytes=int(peak), peak_above_resident_bytes=int(peak - base), launches=launches)
+    say("block_capacity: " + json.dumps(out) + f" on {smi}")
+    if out["block_ba_kf_dropped"] != 0:
+        fail(f"block_capacity: {out['block_ba_kf_dropped']} owned keyframes left out of their blocks")
+    if not finite:
+        fail("block_capacity: non-finite poses or landmarks after the block BA")
+    if not err1 < err0 / BLOCK_GAIN:
+        fail(f"block_capacity: camera-centre error {err0} -> {err1} m, not down {BLOCK_GAIN}-fold")
+    if launches["schur_reduce_frozen"] != want_launches or launches["schur_reduce"] or launches["schur_reduce_stereo"]:
+        fail(f"block_capacity: kernel C launched {launches['schur_reduce_frozen']} times in its frozen mode "
+             f"(want {want_launches}) and {launches['schur_reduce'] + launches['schur_reduce_stereo']} otherwise")
+    return out
+
+
+def check_schur_frozen(corridor, stereo_prob, stereo_cfg, dev, smi):
+    """Kernel C's frozen-landmark mode against its plain version on the card:
+    block 1 of ``block_corridor``'s problems (owned landmarks optimized,
+    boundary ones frozen; the corridor carries no right-x, so every row is
+    mono in the stereo variant the path runs) and the stereo engine's window
+    (``check_schur``'s, uR rows) with a seeded half of its landmarks frozen
+    (BLOCK_SEED). Each output within REL_TOL_C at LAM_C as ``check_schur``
+    holds it, the frozen rows' g_l and Y exactly zero, two calls bitwise
+    equal. Returns (max abs error, largest relative error, the ``entry``
+    readings on the block problem: the shape ``block_capacity`` gives it)."""
+    from dialog_tpu_torch.config import KITTI00
+    from dialog_tpu_torch.kernels.schur import camera_index, schur_reduce, schur_reduce_plain
+    from dialog_tpu_torch.optim.block_ba import block_problem, build_block_problems
+
+    a = BLOCK_ARGS
+    probs = build_block_problems(corridor[0], KITTI00, a["n_blocks"], a["cams_pb"], a["lms_pb"])[0]
+    block = block_problem(probs, 1)
+    rng = np.random.default_rng(BLOCK_SEED)
+    frozen_half = torch.from_numpy(rng.random(stereo_prob.xyz.shape[0]) < 0.5).to(dev)
+    cases = [("block", block, KITTI00, block.lm_opt), ("stereo_window", stereo_prob, stereo_cfg, ~frozen_half)]
+    lam = torch.tensor(LAM_C, dtype=torch.float32, device=dev)
+    max_abs, max_rel, out = 0.0, 0.0, {}
+    for name, p, c, lm_opt in cases:
+        args = (p.R, p.t, p.cam_opt, p.xyz, p.obs_cam, p.obs_uv, p.obs_w, lam, c.fx, c.fy, c.cx, c.cy, c.chi2_mono)
+        kw = dict(_stereo_kw(p, c), lm_opt=lm_opt)
+        got = schur_reduce(*args, **kw)
+        again = schur_reduce(*args, **kw)
+        want = schur_reduce_plain(*args, **kw)
+        torch.cuda.synchronize()
+        errs = {n: _rel_err(g, w, per_block=n == "Hll_inv")
+                for n, g, w in zip(["Hll_inv", "g_l", "Y", "Hcc", "g_c", "g_red", "S_pair"], got, want)}
+        zero = int(torch.count_nonzero(got[1][~lm_opt])) + int(torch.count_nonzero(got[2][~lm_opt]))
+        repeat = all(torch.equal(x, y) for x, y in zip(got, again))
+        live = p.lm_ids < c.max_landmarks
+        n_ur = int((p.obs_ok & (p.obs_ur >= 0)).sum()) if p.obs_ur is not None else 0
+        out[name] = dict(C=int(p.R.shape[0]), P=int(p.xyz.shape[0]), O=int(p.obs_cam.shape[1]),
+                         observations=int(p.obs_ok.sum()), with_a_right_x=n_ur,
+                         frozen_live_landmarks=int((live & ~lm_opt).sum()),
+                         optimized_live_landmarks=int((live & lm_opt).sum()), rel_err=errs,
+                         frozen_rows_nonzero=zero, bitwise_repeatable=repeat)
+        # Hll^-1 of a landmark without a live slot, or frozen, is 1 / the damping alone (~1e9): its absolute
+        # error says nothing, so the absolute error counts Hll^-1 on the optimized live landmarks only
+        held = live & lm_opt
+        max_abs = max(max_abs, float((got[0] - want[0])[held].abs().max()),
+                      max(float((g - w).abs().max()) for g, w in zip(got[1:], want[1:])))
+        max_rel = max(max_rel, max(errs.values()))
+        say(f"kernel C schur_reduce_frozen on the {name} (lam={LAM_C}): {json.dumps(out[name])} on {smi}")
+        if not (max(errs.values()) <= REL_TOL_C and zero == 0 and repeat):
+            fail(f"kernel C frozen mode on the {name}: outputs {errs} beyond {REL_TOL_C}, {zero} non-zero frozen "
+                 f"g_l / Y entries, or not repeatable ({repeat})")
+    args = (block.R, block.t, block.cam_opt, block.xyz, block.obs_cam, block.obs_uv, block.obs_w,
+            torch.tensor(1e-4, dtype=torch.float32, device=dev), KITTI00.fx, KITTI00.fy, KITTI00.cx, KITTI00.cy,
+            KITTI00.chi2_mono)
+    kw = dict(_stereo_kw(block, KITTI00), lm_opt=block.lm_opt)
+    build_index = lambda: camera_index(block.obs_cam, block.obs_w, block.R.shape[0])  # noqa: E731
+    idx = build_index()
+    t = entry("schur_reduce_frozen", lambda: schur_reduce(*args, **kw, cam_index=idx),
+              lambda: schur_reduce_plain(*args, **kw), schur_bound(args, kw, schur_reduce(*args, **kw, cam_index=idx)),
+              cam_index_device_ms=device_ms(build_index, ())["other_device_ms"], solve_iters=BLOCK_ARGS["iters"],
+              checks=out)
+    t["solve_device_ms"] = t["cam_index_device_ms"] + t["solve_iters"] * t["device_ms"]
+    return max_abs, max_rel, t
+
+
+def check_block_sharded(dev, smi) -> dict:
+    """Block BA over a process group on the card: two ranks
+    (``python -m dialog_tpu_torch.gba_rank``, a block job, gloo) against
+    this process's one-rank solve, on a corridor of ``tests/test_block_ba.py``'s
+    size (64 keyframes of 40 landmarks, 4 observers, 0.6 m apart, K = 96,
+    L = 4,096, F = 192, O = 6; ``build_corridor_map``) moved off its truth
+    everywhere (``perturb_block_local`` with no untouched edge), 8 blocks,
+    2 rounds of 4 iterations: the blocks are dealt out over the ranks and
+    come back by one ``all_reduce`` of zero-filled tensors, so both ranks'
+    maps must equal the one-rank map bit for bit."""
+    from pathlib import Path
+
+    from dialog_tpu_torch.config import EngineConfig
+    from dialog_tpu_torch.containers import save_map
+    from dialog_tpu_torch.gba_rank import config_to_json, free_address, launch
+    from dialog_tpu_torch.kernels import common
+    from dialog_tpu_torch.optim.block_ba import block_bundle_adjustment
+    from dialog_tpu_torch.optim.synth_problem import build_corridor_map, perturb_block_local
+
+    cfg = EngineConfig(max_features=192, max_keyframes=96, max_landmarks=4096, max_obs_per_lm=6)
+    m = build_corridor_map(cfg, seed=1, n_kf=64, lm_per_kf=40, step=0.6, device=dev)
+    m = perturb_block_local(m, 64, 40, 8, seed=1, edge=0)
+    kw = dict(n_blocks=8, rounds=2, iters=4, cams_pb=24, lms_pb=512)
+    out_dir = Path(__file__).resolve().parent / "build" / "block_sharded"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    save_map(m, str(out_dir / "map.npz"))
+    common.reset_launch_counts()
+    one, one_s = _timed(lambda: block_bundle_adjustment(m, cfg, **kw))
+    launches = dict(common.launches)
+    job = {"kind": "block", "config": config_to_json(cfg), "map": str(out_dir / "map.npz"),
+           "out": str(out_dir / "out.npz"), **kw}
+    spec = {"address": free_address(), "world": 2, "backend": "gloo", "device": dev.type, "jobs": [job]}
+    ranks, wall = _timed(lambda: launch(spec, str(out_dir / "job.json"), timeout=300,
+                                        cwd=Path(__file__).resolve().parent))
+    got = [r[0] for r in ranks]
+    equal = [all(np.array_equal(g[k], x.cpu().numpy()) for k, x in (("R", one.kfs.R), ("t", one.kfs.t),
+                                                                     ("xyz", one.lms.xyz)))
+             for g in got]
+    out = dict(world=2, backend="gloo", **kw, one_rank_s=one_s, ranks_wall_s=wall,
+               rank_s=[float(g["seconds"]) for g in got], rank_world=[int(g["world"]) for g in got],
+               rank_schur_launches=[int(g["schur_launches"]) for g in got], one_rank_launches=launches,
+               ranks_bitwise_equal_to_one=equal)
+    say("block_sharded: " + json.dumps(out) + f" on {smi} (one card: two-card scaling not measured)")
+    if not (all(equal) and out["rank_world"] == [2, 2]):
+        fail("block_sharded: the two ranks' maps differ from the one-rank block BA")
+    if not (all(n > 0 for n in out["rank_schur_launches"]) and launches["schur_reduce_frozen"] > 0):
+        fail("block_sharded: kernel C's frozen mode did not run on each rank")
+    return out
+
+
+def _first_difference(a, b):
+    """Where two runs of one path part: the first record whose state,
+    ``n_tracked``, R or t differs, and the map leaves that differ."""
+    from dialog_tpu_torch.containers import _named_leaves
+
+    rec = next((i for i, (x, y) in enumerate(zip(a.trajectory, b.trajectory))
+                if x.state != y.state or x.n_tracked != y.n_tracked or not np.array_equal(x.R, y.R)
+                or not np.array_equal(x.t, y.t)), None)
+    if rec is None and len(a.trajectory) != len(b.trajectory):
+        rec = min(len(a.trajectory), len(b.trajectory))
+    leaves = [name for (x, name), (y, _) in zip(_named_leaves(a.m), _named_leaves(b.m)) if not torch.equal(x, y)]
+    return rec, leaves
+
+
+def check_determinism(first_runs: dict, dev, smi) -> dict:
+    """``mono`` and ``loop`` once more, each on a fresh engine from the same
+    seed: every record (state, ``n_tracked``, R, t) and every leaf of the map
+    must equal the first run's bit for bit (``loop`` includes a loop closure
+    and its global BA, whose segment sums are summed in a fixed order:
+    ROADMAP D15). Prints where the runs part if they do."""
+    out = {}
+    for name, first in first_runs.items():
+        again = run_path(name, dev)[2] if name == "mono" else run_loop_path(name, dev)["eng"]
+        rec, leaves = _first_difference(first, again)
+        out[name] = dict(records=len(first.trajectory), first_differing_record=rec, differing_map_leaves=leaves,
+                         bitwise_equal=rec is None and not leaves, gba_runs=first.stats["gba_runs"])
+    say("determinism: " + json.dumps(out) + f" on {smi}")
+    bad = [n for n, r in out.items() if not r["bitwise_equal"]]
+    if bad:
+        fail(f"determinism: {bad} do not repeat bit for bit: {json.dumps({n: out[n] for n in bad})}")
+    return out
+
+
+def check_modes(run, dev, smi) -> dict:
+    """The engine's other modes on the ``loop`` run's engine (its map after
+    the closure and the global BA): the PLY export, the KITTI trajectory and
+    the keyframe TUM trajectory written and parsed back (one vertex per live
+    landmark and keyframe, one 3x4 row per record, one 8-field line per live
+    keyframe in insertion order); a checkpoint saved, loaded into a fresh
+    engine (LOST at its newest keyframe), MODES_FRAMES frames of the orbit
+    tracked on it (it must relocalize and end OK); then localization mode
+    on that engine for MODES_FRAMES more (no new keyframe, no new
+    landmark); then ``reset`` (NOT_INITIALIZED, an empty map)."""
+    from pathlib import Path
+
+    from dialog_tpu_torch.datasets import synth
+    from dialog_tpu_torch.system import LOST, NOT_INITIALIZED, OK, Engine
+
+    eng, scene = run["eng"], run["scene"]
+    d = Path(__file__).resolve().parent / "build" / "modes"
+    d.mkdir(parents=True, exist_ok=True)
+    n_lm, n_kf = int(eng.m.lms.valid.sum()), int(eng.m.kfs.valid.sum())
+    eng.export_map_ply(str(d / "map.ply"))
+    eng.save_trajectory_kitti(str(d / "kitti.txt"))
+    eng.save_keyframe_trajectory_tum(str(d / "kf_tum.txt"))
+    ply = (d / "map.ply").read_text().splitlines()
+    n_vert = int([ln for ln in ply if ln.startswith("element vertex")][0].split()[-1])
+    body = [ln.split() for ln in ply[ply.index("end_header") + 1 :]]
+    kitti = [np.array(ln.split(), float) for ln in (d / "kitti.txt").read_text().splitlines()]
+    kf = [ln.split() for ln in (d / "kf_tum.txt").read_text().splitlines() if ln]
+    ts = [float(x[0]) for x in kf]
+    writers_ok = (n_vert == n_lm + n_kf == len(body) and all(len(x) == 6 for x in body)
+                  and len(kitti) == len(eng.trajectory) and all(r.shape == (12,) for r in kitti)
+                  and len(kf) == n_kf and all(len(x) == 8 for x in kf) and all(b > a for a, b in zip(ts, ts[1:])))
+
+    def frames(lo, hi):
+        for i in range(lo, hi):
+            yield synth.observe(scene, i, noise_px=LOOP_NOISE_PX, desc_flips=LOOP_DESC_FLIPS, device=dev)[0], i
+
+    eng.save_checkpoint(str(d / "map.npz"))
+    res = Engine(eng.cfg, device=dev)
+    res.load_checkpoint(str(d / "map.npz"))
+    # as the reference's, a resume counts the map's high-water keyframe slot (num_kfs), not its insertions
+    loaded_lost = res.state == LOST and res.kf_count == int(eng.m.num_kfs)
+    lo = LOOP_FRAMES - 2 * MODES_FRAMES
+    for fr, i in frames(lo, lo + MODES_FRAMES):
+        res.track_features(fr, float(i) / 30.0)
+    resumed = [r.state for r in res.trajectory]
+    n_kf_res, n_lm_res = res.kf_count, int(res.m.lms.valid.sum())
+    res.set_localization_mode(True)
+    for fr, i in frames(lo + MODES_FRAMES, lo + 2 * MODES_FRAMES):
+        res.track_features(fr, float(i) / 30.0)
+    localized = [r.state for r in res.trajectory[MODES_FRAMES:]]
+    frozen = res.kf_count == n_kf_res and int(res.m.lms.valid.sum()) == n_lm_res
+    res.reset()
+    was_reset = res.state == NOT_INITIALIZED and int(res.m.kfs.valid.sum()) == 0 and int(res.m.lms.valid.sum()) == 0
+    out = dict(landmarks=n_lm, keyframes=n_kf, ply_vertices=n_vert, kitti_rows=len(kitti), kf_tum_lines=len(kf),
+               writers_parse_back=writers_ok, loaded_lost=loaded_lost, resumed_states=resumed,
+               resumed_ok_at_end=resumed[-1] == OK, localization_states=localized,
+               localization_map_frozen=frozen, reset=was_reset)
+    say("modes: " + json.dumps(out) + f" on {smi}")
+    if not (writers_ok and loaded_lost and resumed[-1] == OK and frozen and localized[-1] == OK and was_reset):
+        fail("modes: a writer did not parse back, the resume did not relocalize, localization mode grew the map, "
+             "or reset left a map")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # kernel C
 # ---------------------------------------------------------------------------
 
@@ -1800,18 +2137,22 @@ def schur_bound(args, kw, out) -> dict:
     (18 + 36 D), Z = Y L^-T and Y Hll^-1 g_l (84), Hcc and g_c (27 + 54 D);
     per landmark the 3x3 Cholesky, its inverse and Hll^-1 g_l (75); per pair
     of observations of one landmark by optimized cameras a 6x6x3 product and
-    its sum (216)."""
+    its sum (216). With ``lm_opt`` in ``kw``, a frozen landmark's observations
+    need none of the point terms: the transform, projection, weight and pose
+    Jacobians (60 + 25 D), and Hcc and g_c where the camera is optimized."""
     from dialog_tpu_torch.kernels.schur import observation_terms
 
     R, t, cam_opt, xyz, obs_cam, obs_uv, obs_w = args[:7]
     C = R.shape[0]
     valid = (obs_w > 0.0) & (obs_cam >= 0) & (obs_cam < C)
     ok = observation_terms(R, t, xyz, obs_cam, obs_uv, valid, *args[8:12])[3]
-    rows = torch.where(kw["obs_ur"] >= 0.0, 3, 2) if kw else torch.full_like(obs_cam, 2)
+    rows = torch.where(kw["obs_ur"] >= 0.0, 3, 2) if kw.get("obs_ur") is not None else torch.full_like(obs_cam, 2)
     opt = ok & cam_opt[torch.clamp(obs_cam, 0, C - 1).long()]
-    ops = int((ok * (69 + 43 * rows)).sum()) + int((opt * (129 + 90 * rows)).sum()) + 75 * xyz.shape[0] \
-        + 216 * int((opt.sum(1) ** 2).sum())
-    ins = list(args[:8]) + ([kw["obs_ur"]] if kw else [])
+    free = kw["lm_opt"][:, None] if kw.get("lm_opt") is not None else torch.ones_like(ok)
+    ops = int((ok * (60 + 25 * rows + free * (9 + 18 * rows))).sum()) \
+        + int((opt * (27 + 54 * rows + free * (102 + 36 * rows))).sum()) + 75 * xyz.shape[0] \
+        + 216 * int(((opt & free).sum(1) ** 2).sum())
+    ins = list(args[:8]) + [kw[k] for k in ("obs_ur", "lm_opt") if kw.get(k) is not None]
     return dict(bound(nbytes(*ins, *out), ops), live_observations=int(ok.sum()), optimized_observations=int(opt.sum()))
 
 
@@ -1911,6 +2252,7 @@ def kernel_times(images, cfg, prob, stereo_cfg, stereo_prob, dev, mono_stack, st
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs only on a GPU")
     dev = torch.device("cuda")
@@ -1981,6 +2323,12 @@ def main() -> int:
     gba_dense = check_gba_dense(loop_runs["loop"], dev, smi)
     gba_sharded = check_gba_sharded(loop_runs, dev, smi)
 
+    # two runs of a path from one seed give the same bits (the loop path's global BA included); then the
+    # engine's other modes on the loop engine, and block BA over two ranks against one
+    check_determinism({"mono": eng, "loop": loop_runs["loop"]["eng"]}, dev, smi)
+    check_modes(loop_runs["loop"], dev, smi)
+    block_sharded = check_block_sharded(dev, smi)
+
     # kernels A and B against their plain versions (after the paths: these launches do not count)
     err_a = check_fast([("mono", images[0], cfg), ("stereo", simages[0][0], seng.cfg)], dev)
     mono_stack = np.stack(mb["frames"][8 : 8 + BATCH])
@@ -1990,9 +2338,13 @@ def main() -> int:
 
     times = kernel_times(images, cfg, prob, seng.cfg, sprob, dev, mono_stack, stereo_stack)
     times["schur_reduce"]["global_ba_C"] = check_schur_large_c(dev, smi)
-    # the KITTI00 capacity case profiles its own work: after the kernels' short sessions (ROADMAP D11: in one run
-    # the session after its profiled windows came back without a device record)
+    corridor = block_corridor(dev)
+    err_cf, rel_cf, times["schur_reduce_frozen"] = check_schur_frozen(corridor, sprob, seng.cfg, dev, smi)
+    # the KITTI00 capacity cases profile their own work: after the kernels' short sessions (ROADMAP D11: in one
+    # run the session after its profiled windows came back without a device record)
     gba_capacity = check_gba_capacity(dev, smi)
+    block_capacity = check_block_capacity(corridor, dev, smi)
+    del corridor
 
     # the batched paths against their per-frame twins under the profiler, and relocalization on the mono_batch
     # engine. These windows (some 100,000 kernels each) come after the kernels' own short profiler
@@ -2001,19 +2353,21 @@ def main() -> int:
     reloc_probe(mb, dev, smi)
     profile_batch_path("stereo_batch", sb, smi)
     errs = {"fast_nms_rank": err_a, "fast_nms_rank_batch": err_ab, "hamming_best2": err_b, "hamming_mutual": err_m,
-            "schur_reduce": err_c, "schur_reduce_stereo": err_cs}
-    rels = {"schur_reduce": rel_c, "schur_reduce_stereo": rel_cs}
+            "schur_reduce": err_c, "schur_reduce_stereo": err_cs, "schur_reduce_frozen": err_cf}
+    rels = {"schur_reduce": rel_c, "schur_reduce_stereo": rel_cs, "schur_reduce_frozen": rel_cf}
     by_path = {"mono": launches, "stereo": slaunches, "rgbd": rlaunches, "mono_batch": mb["launches"],
                "stereo_batch": sb["launches"], **{name: run["launches"] for name, run in loop_runs.items()},
                "gba_dense": gba_dense["launches"], "gba_sharded": gba_sharded["one_rank_launches"],
-               "gba_capacity": gba_capacity["launches"]}
+               "gba_capacity": gba_capacity["launches"], "block_sharded": block_sharded["one_rank_launches"],
+               "block_capacity": block_capacity["launches"]}
     # every launch is above these bounds: the shortest single kernel of the timing runs is the practical floor
     floor_ms = min(t["shortest_launch_ms"] for t in times.values())
     say(f"shortest single kernel launch seen while timing (the practical floor of any bound below it): "
         f"{floor_ms} ms on {smi}")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        path = {"schur_reduce_stereo": "stereo", "fast_nms_rank_batch": "mono_batch"}.get(name, "mono")
+        path = {"schur_reduce_stereo": "stereo", "fast_nms_rank_batch": "mono_batch",
+                "schur_reduce_frozen": "block_capacity"}.get(name, "mono")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": by_path[path][name], "launches_path": path,
@@ -2031,6 +2385,7 @@ def main() -> int:
             + "".join(f"; at C={c}: device {g['device_ms']} ms {json.dumps(g['stages_ms'])}, wrapper loop "
                       f"{g['wrapper_loop_ms']} ms, plain {g['plain_ms']} ms, bound {g['bound_ms']} ms by {g['bound_by']}"
                       for c, g in t.get("global_ba_C", {}).items()))
+    say(f"chip_smoke.py: {time.perf_counter() - t_script:.1f} s in all, the kernels' build included, on {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

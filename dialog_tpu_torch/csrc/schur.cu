@@ -18,6 +18,13 @@
 // Camera side: Hcc[c] = sum J_c^T w J_c, g_c[c] = sum J_c^T w r,
 //   g_red[c] = sum Y Hll^-1 g_l, S_pair[c,:,d,:] = sum_p Y_po Hll^-1 Y_po'^T.
 //
+// Frozen landmarks (lm_opt [P], may be null: all optimized): a landmark with
+// lm_opt[p] == 0 has its J_l zeroed (the reference's einsum path,
+// optim/local_ba.py::_reduce_jnp; the Pallas kernel has no such mode). Its
+// Hll is then the damping alone, its g_l, Y, Z and its share of g_red and
+// S_pair are zero, and its observations still add to Hcc and g_c as
+// pose-only edges. Its slots leave S_pair's lists (their Z is zero).
+//
 // Stereo variant (STEREO, the Pallas body's use_stereo): an observation with
 // a right-x obs_ur >= 0 adds a third row
 //   rw = fx x/z + cx - bf/z - uR,  chi2 = (rx^2 + ry^2 + rw^2) w_info with
@@ -81,8 +88,8 @@ schur_obs(const float* __restrict__ R, const float* __restrict__ T,
           const unsigned char* __restrict__ cam_opt, const float* __restrict__ xyz,
           const int* __restrict__ obs_cam, const float* __restrict__ obs_uv,
           const float* __restrict__ obs_w, const float* __restrict__ obs_ur,
-          const float* __restrict__ lam_ptr, float fx, float fy, float cx, float cy,
-          float delta2, float bf, float delta2_st, int C, int P, int O,
+          const unsigned char* __restrict__ lm_opt, const float* __restrict__ lam_ptr, float fx,
+          float fy, float cx, float cy, float delta2, float bf, float delta2_st, int C, int P, int O,
           float* __restrict__ hll_inv_out, float* __restrict__ gl_out, float* __restrict__ y_out,
           int* __restrict__ scam, float* __restrict__ Zs, float* __restrict__ cterm) {
   constexpr int NR = STEREO ? 3 : 2;           // residual rows: u, v and uR
@@ -103,6 +110,7 @@ schur_obs(const float* __restrict__ R, const float* __restrict__ T,
     wi = obs_w[n];
   }
   const bool slot = active && c >= 0 && c < C && wi > 0.f;   // a slot of the camera index
+  const bool lm_free = lm_opt == nullptr || lm_opt[p] != 0;   // the landmark is optimized
 
   float r[NR], Jc[NR][6], Jl[NR][3];
 #pragma unroll
@@ -154,10 +162,12 @@ schur_obs(const float* __restrict__ R, const float* __restrict__ T,
       Jc[1][3] = -fy * (1.f + yc * yc * iz2) * opt;
       Jc[1][4] = fy * xc * yc * iz2 * opt;
       Jc[1][5] = fy * xc * iz * opt;
+      if (lm_free) {
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        Jl[0][k] = a * Rc[k] + cc * Rc[6 + k];
-        Jl[1][k] = b * Rc[3 + k] + d * Rc[6 + k];
+        for (int k = 0; k < 3; ++k) {
+          Jl[0][k] = a * Rc[k] + cc * Rc[6 + k];
+          Jl[1][k] = b * Rc[3 + k] + d * Rc[6 + k];
+        }
       }
       if constexpr (STEREO) {
         if (has_ur) {
@@ -167,8 +177,10 @@ schur_obs(const float* __restrict__ R, const float* __restrict__ T,
           Jc[2][3] = c2 * yc * opt;
           Jc[2][4] = (a * zc - c2 * xc) * opt;
           Jc[2][5] = -a * yc * opt;
+          if (lm_free) {
 #pragma unroll
-          for (int k = 0; k < 3; ++k) Jl[2][k] = a * Rc[k] + c2 * Rc[6 + k];
+            for (int k = 0; k < 3; ++k) Jl[2][k] = a * Rc[k] + c2 * Rc[6 + k];
+          }
         }
       }
     }
@@ -300,8 +312,8 @@ schur_obs(const float* __restrict__ R, const float* __restrict__ T,
     }
   }
   if (active) {
-    scam[n] = (counts && first) ? c : -1;
-    if (counts && first) {
+    scam[n] = (counts && first && lm_free) ? c : -1;
+    if (counts && first && lm_free) {
 #pragma unroll
       for (int e = 0; e < 18; ++e) Zs[n * 18 + e] = Z[e];
     }
@@ -422,12 +434,12 @@ schur_cams(const unsigned char* __restrict__ cam_opt, const int* __restrict__ ca
 template <bool STEREO, int G>
 void launch_obs(int P, cudaStream_t s, const float* R, const float* T, const unsigned char* cam_opt,
                 const float* xyz, const int* obs_cam, const float* obs_uv, const float* obs_w,
-                const float* obs_ur, const float* lam, float fx, float fy, float cx, float cy,
-                float delta2, float bf, float delta2_st, int C, int O, float* hll_inv, float* g_l,
-                float* Y, int* scam, float* Zs, float* cterm) {
+                const float* obs_ur, const unsigned char* lm_opt, const float* lam, float fx,
+                float fy, float cx, float cy, float delta2, float bf, float delta2_st, int C, int O,
+                float* hll_inv, float* g_l, float* Y, int* scam, float* Zs, float* cterm) {
   constexpr int per_block = NT_OBS / G;
   schur_obs<STEREO, G><<<(P + per_block - 1) / per_block, NT_OBS, 0, s>>>(
-      R, T, cam_opt, xyz, obs_cam, obs_uv, obs_w, obs_ur, lam, fx, fy, cx, cy, delta2, bf,
+      R, T, cam_opt, xyz, obs_cam, obs_uv, obs_w, obs_ur, lm_opt, lam, fx, fy, cx, cy, delta2, bf,
       delta2_st, C, P, O, hll_inv, g_l, Y, scam, Zs, cterm);
 }
 
@@ -447,11 +459,13 @@ void launch_obs_for(int O, Args... args) {
 extern "C" int schur_scratch_words() { return 18 + N_TERMS + 1; }
 
 // obs_ur (f32 [P, O]) is read only when stereo != 0, and may be null otherwise.
+// lm_opt (bool [P]) may be null: every landmark optimized.
 // scratch: P * O * schur_scratch_words() words. cam_out: S_pair [C,6,C,6],
 // Hcc [C,6,6], g_c [C,6], g_red [C,6], one after the other.
 extern "C" int schur_reduce_launch(const void* R, const void* t, const void* cam_opt,
                                    const void* xyz, const void* obs_cam, const void* obs_uv,
-                                   const void* obs_w, const void* obs_ur, const void* lam,
+                                   const void* obs_w, const void* obs_ur, const void* lm_opt,
+                                   const void* lam,
                                    const void* cam_ptr, const void* cam_obs, float fx, float fy,
                                    float cx, float cy, float delta2, float bf, float delta2_st,
                                    int stereo, int C, int P, int O, void* hll_inv, void* g_l,
@@ -470,19 +484,20 @@ extern "C" int schur_reduce_launch(const void* R, const void* t, const void* cam
   const unsigned char* opt = static_cast<const unsigned char*>(cam_opt);
   const int* ptr = static_cast<const int*>(cam_ptr);
   const int* obs = static_cast<const int*>(cam_obs);
+  const unsigned char* lm_mask = static_cast<const unsigned char*>(lm_opt);
   if (P > 0) {
     if (stereo)
       launch_obs_for<true>(O, P, s, static_cast<const float*>(R), static_cast<const float*>(t), opt,
                            static_cast<const float*>(xyz), static_cast<const int*>(obs_cam),
                            static_cast<const float*>(obs_uv), static_cast<const float*>(obs_w),
-                           static_cast<const float*>(obs_ur), static_cast<const float*>(lam), fx, fy,
+                           static_cast<const float*>(obs_ur), lm_mask, static_cast<const float*>(lam), fx, fy,
                            cx, cy, delta2, bf, delta2_st, C, O, static_cast<float*>(hll_inv),
                            static_cast<float*>(g_l), static_cast<float*>(Y), scam, Zs, cterm);
     else
       launch_obs_for<false>(O, P, s, static_cast<const float*>(R), static_cast<const float*>(t), opt,
                             static_cast<const float*>(xyz), static_cast<const int*>(obs_cam),
                             static_cast<const float*>(obs_uv), static_cast<const float*>(obs_w),
-                            static_cast<const float*>(nullptr), static_cast<const float*>(lam), fx,
+                            static_cast<const float*>(nullptr), lm_mask, static_cast<const float*>(lam), fx,
                             fy, cx, cy, delta2, 0.f, 0.f, C, O, static_cast<float*>(hll_inv),
                             static_cast<float*>(g_l), static_cast<float*>(Y), scam, Zs, cterm);
     cudaError_t err = cudaGetLastError();

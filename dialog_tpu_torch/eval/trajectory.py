@@ -1,4 +1,4 @@
-"""Trajectory export in TUM format (numpy copy of ``dialog_tpu/eval/trajectory.py``).
+"""Trajectory export in TUM and KITTI formats (numpy copy of ``dialog_tpu/eval/trajectory.py``).
 
 Poses are stored as world->camera (T_cw) internally; files contain
 camera->world (T_wc), as the reference emits.
@@ -41,6 +41,18 @@ def save_tum(path: str, timestamps, Rs, ts) -> None:
                 f"{ts_:.6f} {twc[0]:.7f} {twc[1]:.7f} {twc[2]:.7f} "
                 f"{q[1]:.7f} {q[2]:.7f} {q[3]:.7f} {q[0]:.7f}\n"
             )
+
+
+def save_kitti(path: str, Rs, ts) -> None:
+    """KITTI format: 3x4 row-major T_wc per line."""
+    with open(path, "w") as f:
+        for R, t in zip(Rs, ts):
+            R = np.asarray(R, np.float64)
+            t = np.asarray(t, np.float64)
+            Rwc = R.T
+            twc = -Rwc @ t
+            P = np.concatenate([Rwc, twc[:, None]], axis=1).reshape(-1)
+            f.write(" ".join(f"{x:.9e}" for x in P) + "\n")
 
 
 def load_tum(path: str):

@@ -1,4 +1,5 @@
-"""One rank of a landmark-sharded global BA, as a process of its own.
+"""One rank of a landmark-sharded global BA, or of a block BA over a
+process group, as a process of its own.
 
     python -m dialog_tpu_torch.gba_rank JOB.json RANK
 
@@ -13,7 +14,11 @@ its slice of the landmarks) and writes the map's ``R``, ``t``, ``xyz`` and
 ``obs_lm`` after it, with the solve's wall seconds, the group's size, the
 landmark rows this rank held (and how many of them live) and its launches of
 kernel C, into ``out`` with ``.rank<RANK>`` before the
-suffix. Every rank must be given the same jobs.
+suffix. A job with ``"kind": "block"`` runs
+``optim.block_ba.block_bundle_adjustment`` instead, with the job's
+``n_blocks``, ``rounds``, ``iters``, ``cams_pb`` and ``lms_pb`` (each rank
+solves its share of the active blocks), and writes its two drop counts
+beside. Every rank must be given the same jobs.
 
 Several ranks may share one card with the gloo backend, which carries CUDA
 tensors (NCCL refuses two ranks on one device). ``launch`` starts the ranks
@@ -29,6 +34,9 @@ import time
 
 import numpy as np
 import torch
+
+BLOCK_ARGS = ("n_blocks", "rounds", "iters", "cams_pb", "lms_pb")   # a block job's arguments
+SCHUR_COUNTS = ("schur_reduce", "schur_reduce_stereo", "schur_reduce_frozen")
 
 
 def config_to_json(cfg) -> dict:
@@ -90,6 +98,7 @@ def main(argv=None) -> int:
     from . import distributed
     from .containers import load_map
     from .kernels import common
+    from .optim.block_ba import block_bundle_adjustment
     from .optim.global_ba import global_bundle_adjustment
 
     job_path, rank = (argv or sys.argv[1:])[:2]
@@ -106,7 +115,11 @@ def main(argv=None) -> int:
             dist.barrier(group)
             common.reset_launch_counts()
             t0 = time.perf_counter()
-            out = global_bundle_adjustment(m, cfg, iters=job["iters"], group=group, **job.get("pcg", {}))
+            stats = {}
+            if job.get("kind") == "block":
+                out = block_bundle_adjustment(m, cfg, **{k: job[k] for k in BLOCK_ARGS}, group=group, stats=stats)
+            else:
+                out = global_bundle_adjustment(m, cfg, iters=job["iters"], group=group, **job.get("pcg", {}))
             if spec["device"] == "cuda":
                 torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
@@ -115,7 +128,8 @@ def main(argv=None) -> int:
             np.savez(rank_out(job["out"], rank), R=out.kfs.R.cpu().numpy(), t=out.kfs.t.cpu().numpy(),
                      xyz=out.lms.xyz.cpu().numpy(), obs_lm=out.kfs.obs_lm.cpu().numpy(), seconds=seconds,
                      world=world, rows_held=per, live_held=int(m.lms.valid[lo:hi].sum()),
-                     schur_launches=common.launches["schur_reduce"] + common.launches["schur_reduce_stereo"])
+                     schur_launches=sum(common.launches[k] for k in SCHUR_COUNTS),
+                     **{k: stats.get(k, 0) for k in ("block_ba_obs_dropped", "block_ba_kf_dropped")})
     finally:
         dist.destroy_process_group()
     return 0

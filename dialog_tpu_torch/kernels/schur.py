@@ -15,9 +15,16 @@ uR_hat - uR with its own Jacobians, and their Huber bound is
 ``delta2_stereo``; monocular observations keep two rows and ``delta2``
 (reference: g2o's mixed EdgeSE3ProjectXYZ / EdgeStereoSE3ProjectXYZ graphs).
 
+With ``lm_opt`` [P] (bool; None: every landmark optimized) a frozen
+landmark's point Jacobian is zero: its Hll is the damping alone, its g_l and
+Y are zero, and its observations add to Hcc and g_c as pose-only edges (the
+reference's einsum path; the Pallas kernel has no such mode, and the
+reference's block BA pins its einsum path). On the card a call with
+``lm_opt`` counts its launches as ``schur_reduce_frozen``, whichever
+variant it runs.
+
 ``schur_reduce_plain`` is the same reduction in plain PyTorch (the
-reference's einsum path, ``_reduce_jnp``); it also takes the frozen-landmark
-mask ``lm_opt``, which the CUDA kernel does not.
+reference's einsum path, ``_reduce_jnp``).
 
 The CUDA kernel walks each camera's observations through an index of the
 live slots by camera (``camera_index``). ``obs_cam`` and ``obs_w`` do not
@@ -139,14 +146,13 @@ def schur_reduce(R, t, cam_opt, xyz, obs_cam, obs_uv, obs_w, lam, fx, fy, cx, cy
     """One fused BA reduction pass (see module doc). ``lam`` is a 0-d f32
     tensor on the problem's device, so the LM loop never syncs the host.
     The stereo variant is on when ``obs_ur is not None and bf > 0``; on the
-    card it counts its launches as ``schur_reduce_stereo``. ``cam_index`` is
+    card it counts its launches as ``schur_reduce_stereo``, and a call with
+    ``lm_opt`` as ``schur_reduce_frozen``. ``cam_index`` is
     ``camera_index(obs_cam, obs_w, C)`` of the same problem (built here when
     absent; the plain version has no use for it)."""
     if common.route(xyz) == "cpu":
         return schur_reduce_plain(R, t, cam_opt, xyz, obs_cam, obs_uv, obs_w, lam,
                                   fx, fy, cx, cy, delta2, lm_opt, obs_ur, bf, delta2_stereo)
-    if lm_opt is not None:
-        raise ValueError("the CUDA Schur kernel has no frozen-landmark (lm_opt) path")
     stereo = obs_ur is not None and bf > 0
     from .build import load
 
@@ -163,14 +169,19 @@ def schur_reduce(R, t, cam_opt, xyz, obs_cam, obs_uv, obs_w, lam, fx, fy, cx, cy
     if cam_index is None:
         cam_index = camera_index(obs_cam, obs_w, C)
     lam = torch.as_tensor(lam, dtype=torch.float32, device=dev).reshape(())
-    for name, x, dt, shape in [
+    args = [
         ("R", R, torch.float32, (C, 3, 3)), ("t", t, torch.float32, (C, 3)),
         ("cam_opt", cam_opt, torch.bool, (C,)), ("xyz", xyz, torch.float32, (P, 3)),
         ("obs_cam", obs_cam, torch.int32, (P, O)), ("obs_uv", obs_uv, torch.float32, (P, O, 2)),
         ("obs_w", obs_w, torch.float32, (P, O)), ("lam", lam, torch.float32, ()),
         ("cam_index.cam_ptr", cam_index.cam_ptr, torch.int32, (C + 1,)),
         ("cam_index.cam_obs", cam_index.cam_obs, torch.int32, (P * O,)),
-    ] + ([("obs_ur", obs_ur, torch.float32, (P, O))] if stereo else []):
+    ]
+    if stereo:
+        args.append(("obs_ur", obs_ur, torch.float32, (P, O)))
+    if lm_opt is not None:
+        args.append(("lm_opt", lm_opt, torch.bool, (P,)))
+    for name, x, dt, shape in args:
         common.require(x, name, dt, shape, dev)
     hll_inv = torch.empty((P, 3, 3), dtype=torch.float32, device=dev)
     g_l = torch.empty((P, 3), dtype=torch.float32, device=dev)
@@ -182,17 +193,18 @@ def schur_reduce(R, t, cam_opt, xyz, obs_cam, obs_uv, obs_w, lam, fx, fy, cx, cy
         if lib.schur_scratch_words() != SCRATCH_WORDS:
             raise RuntimeError("schur.cu and kernels/schur.py disagree on the scratch per observation slot")
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_float] * 7 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_float] * 7 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p] * 6)
     err = fn(common.ptr(R), common.ptr(t), common.ptr(cam_opt), common.ptr(xyz),
              common.ptr(obs_cam), common.ptr(obs_uv), common.ptr(obs_w),
-             common.ptr(obs_ur) if stereo else None, common.ptr(lam),
+             common.ptr(obs_ur) if stereo else None, common.ptr(lm_opt) if lm_opt is not None else None,
+             common.ptr(lam),
              common.ptr(cam_index.cam_ptr), common.ptr(cam_index.cam_obs),
              float(fx), float(fy), float(cx), float(cy), float(delta2), float(bf), float(delta2_stereo),
              int(stereo), C, P, O,
              common.ptr(hll_inv), common.ptr(g_l), common.ptr(Y), common.ptr(scratch),
              common.ptr(cam_out), common.stream_ptr(dev))
-    name = "schur_reduce_stereo" if stereo else "schur_reduce"
+    name = "schur_reduce_frozen" if lm_opt is not None else "schur_reduce_stereo" if stereo else "schur_reduce"
     common.launches[name] += 1
     common.check(err, name)
     S_pair = cam_out[: 36 * C * C].reshape(C, 6, C, 6)

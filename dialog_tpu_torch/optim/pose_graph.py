@@ -6,9 +6,11 @@ spanning tree, the strong covisibility pairs and the loop edge, each with a
 relative-Sim3 measurement. The solve is damped Gauss-Newton over one dense
 [7K, 7K] system: the per-edge 7x7 Jacobian blocks are forward-mode
 derivatives of the edge residual at zero perturbation, all edges
-and all 14 directions in one evaluation (``optim.lm.jacobian_at_zero``), added into the system's own layout
-with ``index_add_``. Decisions stay on the device: a fixed number of
-iterations, each step kept or dropped with ``torch.where``, no host read.
+and all 14 directions in one evaluation (``optim.lm.jacobian_at_zero``), summed into the system's 7x7
+blocks in a fixed order (``ops.segment_sum``, the order built once per solve: ``system_order``), so a
+solve on the card repeats bit for bit. Decisions stay on the device: a fixed number of
+iterations, each step kept or dropped with ``torch.where``, no host read
+after the summation order's build (four).
 
 Landmarks then move with their reference keyframe's correction
 S_new^-1 o S_old, as in the reference.
@@ -113,12 +115,25 @@ def _edges(si, Ri, ti, sj, Rj, tj, ms, mR, mt):
     return jacobian_at_zero(f, 14, (si.shape[0],), Ri)[0]
 
 
-def _system(prob: PoseGraphProblem, s, R, t):
-    """(cost, H f32[7K, 7K], g f32[7K]) of the graph at the nodes (s, R, t).
-    An edge that is not ``e_ok`` adds into a scratch row and column past 7K,
-    cut off at the end."""
+def system_order(prob: PoseGraphProblem):
+    """The fixed orders of ``_system``'s sums (``ops.segment_order``): the
+    four 7x7 blocks of each edge into the K x K block grid of H, its two
+    gradient blocks into the K node rows; an edge that is not ``e_ok``
+    drops out. Depends on the edge list alone: one build per solve."""
+    K = prob.s.shape[0]
+    ei, ej = prob.e_i.long(), prob.e_j.long()
+    i_ = torch.where(prob.e_ok, ei, -1)
+    j_ = torch.where(prob.e_ok, ej, -1)
+    rows, cols = torch.stack([i_, j_, i_, j_]), torch.stack([i_, j_, j_, i_])          # [4, E]
+    blk = torch.where((rows >= 0) & (cols >= 0), rows * K + cols, -1)
+    return ops.segment_order(blk, K * K), ops.segment_order(rows[:2], K)
+
+
+def _system(prob: PoseGraphProblem, s, R, t, order=None):
+    """(cost, H f32[7K, 7K], g f32[7K]) of the graph at the nodes (s, R, t);
+    ``order``: ``system_order(prob)``, built here when absent."""
     K = s.shape[0]
-    n = 7 * (K + 1)
+    H_order, g_order = system_order(prob) if order is None else order
     ei, ej = prob.e_i.long(), prob.e_j.long()
     r, J = _edges(s[ei], R[ei], t[ei], s[ej], R[ej], t[ej], prob.m_s, prob.m_R, prob.m_t)
     w = torch.where(prob.e_ok, prob.e_w, 0.0)
@@ -126,14 +141,9 @@ def _system(prob: PoseGraphProblem, s, R, t):
     Ji, Jj = J[..., :7], J[..., 7:]
     blocks = torch.stack([torch.einsum("eai,e,eaj->eij", A, w, B) for A, B in ((Ji, Ji), (Jj, Jj), (Ji, Jj), (Jj, Ji))])
     g_blocks = torch.stack([torch.einsum("eai,e,ea->ei", A, w, r) for A in (Ji, Jj)])
-    i_ = torch.where(prob.e_ok, ei, K)
-    j_ = torch.where(prob.e_ok, ej, K)
-    rows = torch.stack([i_, j_, i_, j_])[:, :, None] * 7 + torch.arange(7, device=s.device)   # [4, E, 7]
-    cols = torch.stack([i_, j_, j_, i_])[:, :, None] * 7 + torch.arange(7, device=s.device)
-    flat = rows[..., :, None] * n + cols[..., None, :]                                         # [4, E, 7, 7]
-    H = torch.zeros(n * n, dtype=s.dtype, device=s.device).index_add_(0, flat.reshape(-1), blocks.reshape(-1))
-    g = torch.zeros(n, dtype=s.dtype, device=s.device).index_add_(0, rows[:2].reshape(-1), g_blocks.reshape(-1))
-    return cost, H.reshape(n, n)[: 7 * K, : 7 * K], g[: 7 * K]
+    H = ops.segment_sum(blocks.reshape(-1, 7, 7), H_order).reshape(K, K, 7, 7)
+    g = ops.segment_sum(g_blocks.reshape(-1, 7), g_order)
+    return cost, H.permute(0, 2, 1, 3).reshape(7 * K, 7 * K), g.reshape(7 * K)
 
 
 def solve_pose_graph(prob: PoseGraphProblem, iters: int = 20, lam0: float = 1e-4):
@@ -147,7 +157,8 @@ def solve_pose_graph(prob: PoseGraphProblem, iters: int = 20, lam0: float = 1e-4
     keep = opt7[:, None] & opt7[None, :]
     frozen = torch.diag(torch.where(opt7, 0.0, 1.0))
     s, R, t = prob.s, prob.R, prob.t
-    cost, H, g = _system(prob, s, R, t)
+    order = system_order(prob)
+    cost, H, g = _system(prob, s, R, t, order)
     lam = ops.scalar(lam0, torch.float32, s.device)
     for _ in range(iters):
         Hd = H + torch.diag(lam * torch.clamp(torch.diagonal(H), min=1e-9) + 1e-9)
@@ -156,7 +167,7 @@ def solve_pose_graph(prob: PoseGraphProblem, iters: int = 20, lam0: float = 1e-4
         dx = torch.linalg.solve_ex(Hd, rhs[:, None], check_errors=False)[0].reshape(K, 7)
         s2, R2, t2 = geo.sim3_retract(s, R, t, dx)
         R2 = geo.orthogonalize(R2)
-        new_cost, H2, g2 = _system(prob, s2, R2, t2)
+        new_cost, H2, g2 = _system(prob, s2, R2, t2, order)
         accept = new_cost < cost
         s, R, t = torch.where(accept, s2, s), torch.where(accept, R2, R), torch.where(accept, t2, t)
         H, g = torch.where(accept, H2, H), torch.where(accept, g2, g)

@@ -15,11 +15,13 @@ diagonal blocks (a landmark is observed at most once per camera, so the
 diagonal of the pair term is a plain segment sum of (Y L^-T)(Y L^-T)^T).
 
 Plain PyTorch, as the reference is plain XLA: einsums, gathers, and segment
-sums by ``index_add_`` into the C camera rows and ``PAD_ROWS`` scratch rows
-that take the padding slots and are cut off. A float ``index_add_`` on CUDA adds in whatever order its
-atomics land, so a solve on the card does not repeat bit for bit (ROADMAP
-D15; ``index_put_`` with ``accumulate``, which sorts, made an engine tick 45
-times slower on an H100).
+sums into the C camera rows in a fixed order (``ops.segment_sum``), so a
+solve on the card repeats bit for bit. The order depends only on the
+problem's ``obs_cam``: ``segment_orders`` builds it once per problem (one
+for the whole problem, one per construction slab), and the engine's
+asynchronous GBA builds it when it starts and hands it to every
+``lm_steps_pcg``. (A float ``index_add_`` adds in whatever order its
+atomics land on CUDA: ROADMAP D15.)
 
 No host read per CG iteration: every iteration's update is masked by an
 ``active`` flag kept on the device, ``n_cg`` counts the active iterations
@@ -54,30 +56,32 @@ from .local_ba import BAProblem, _delta2_of, _residuals, _robust_weights, _use_s
 # g_l) stay whole (the reference cut at 65,536 into slabs of 16,384 for a 16 GB chip)
 SLAB_LMS = 131072
 CG_CHECK_EVERY = 8   # CG iterations between two host reads of the exit flag
-PAD_ROWS = 1024      # scratch rows of the segment sums for the slots without a camera
 
 
-def _lm_machinery(prob: BAProblem, cfg: EngineConfig, chi2_th, cg_iters: int, cg_tol: float = 1e-6,
-                  chunk: bool = True, group=None):
-    """(cost_of, body) for the PCG LM iteration, shared by ``solve_ba_pcg``
-    and ``lm_steps_pcg``. The LM carry is ``(R, t, xyz, lam, cost,
-    cg_total)``; ``cg_total`` counts the CG iterations that ran (one
-    ``all_reduce`` each on a sharded problem). ``cost_of`` returns the cost
-    and whether R, t and every rank's landmarks are finite."""
-    fx, fy, cx, cy = cfg.fx, cfg.fy, cfg.cx, cfg.cy
+def _slab_len(P: int, chunk: bool) -> int:
+    return SLAB_LMS if chunk and P > SLAB_LMS else P
+
+
+def segment_orders(prob: BAProblem, chunk: bool = True):
+    """The fixed orders of the PCG's camera-side segment sums for ``prob``
+    (``ops.segment_order`` of each slot's camera; slots without one drop
+    out): ``(whole problem, [one per construction slab])``. Depends on
+    ``obs_cam`` alone, so one build serves every LM iteration of a solve."""
     C = prob.cam_slots.shape[0]
-    P, O = prob.obs_cam.shape
+    P = prob.obs_cam.shape[0]
+    cam = torch.clamp(prob.obs_cam, 0, C)               # C: no camera
+    whole = ops.segment_order(cam, C)
+    Pc = _slab_len(P, chunk)
+    slabs = [whole] if Pc == P else [ops.segment_order(cam[lo : min(lo + Pc, P)], C) for lo in range(0, P, Pc)]
+    return whole, slabs
+
+
+def _cost_fn(prob: BAProblem, cfg: EngineConfig, chi2_th, group=None):
+    """The LM cost at (R, t, xyz) and whether R, t and every rank's
+    landmarks are finite."""
+    fx, fy, cx, cy = cfg.fx, cfg.fy, cfg.cx, cfg.cy
     bf = cfg.bf if _use_stereo(prob, cfg) else 0.0
     delta2 = _delta2_of(prob, cfg, chi2_th)
-    dev, dt = prob.xyz.device, prob.xyz.dtype
-    eye6 = torch.eye(6, dtype=dt, device=dev)
-    cam = torch.clamp(prob.obs_cam, 0, C).long()        # C = pad row (cut off)
-    # the segment sums' rows: a slot without a camera adds its zeros to one of PAD_ROWS scratch rows past C,
-    # not all to row C, whose atomics would serialize (most of a global problem's slots are padding)
-    pad_rows = C + torch.arange(P * O, device=dev).reshape(P, O) % PAD_ROWS
-    seg_rows = torch.where(cam < C, cam, pad_rows)
-    opt6 = prob.cam_opt[:, None]                         # [C, 1]
-    Pc = SLAB_LMS if chunk and P > SLAB_LMS else P
 
     def cost_of(R, t, xyz):
         r, _, _, ok = _residuals(prob, R, t, xyz, fx, fy, cx, cy, bf)
@@ -86,12 +90,32 @@ def _lm_machinery(prob: BAProblem, cfg: EngineConfig, chi2_th, cg_iters: int, cg
         n_behind = torch.sum((prob.obs_ok & ~ok).to(torch.float32))
         return global_cost(cost + 1e3 * n_behind, R, t, xyz, group)
 
-    def seg6(rows, vals):
-        """Segment-sum [p, O, ...] observation values into [C] camera rows
-        (``rows``: slices of ``seg_rows``)."""
-        out = torch.zeros((C + PAD_ROWS,) + vals.shape[2:], dtype=vals.dtype, device=dev)
-        out.index_add_(0, rows.reshape(-1), vals.reshape((-1,) + vals.shape[2:]))
-        return out[:C]
+    return cost_of
+
+
+def _lm_machinery(prob: BAProblem, cfg: EngineConfig, chi2_th, cg_iters: int, cg_tol: float = 1e-6,
+                  chunk: bool = True, group=None, seg=None):
+    """The PCG LM iteration ``body``, shared by ``solve_ba_pcg`` and
+    ``lm_steps_pcg``. The LM carry is ``(R, t, xyz, lam, cost, cg_total)``;
+    ``cg_total`` counts the CG iterations that ran (one ``all_reduce`` each
+    on a sharded problem). ``seg``: ``segment_orders(prob, chunk)``, built
+    here when absent."""
+    fx, fy, cx, cy = cfg.fx, cfg.fy, cfg.cx, cfg.cy
+    C = prob.cam_slots.shape[0]
+    P, O = prob.obs_cam.shape
+    bf = cfg.bf if _use_stereo(prob, cfg) else 0.0
+    delta2 = _delta2_of(prob, cfg, chi2_th)
+    dev, dt = prob.xyz.device, prob.xyz.dtype
+    eye6 = torch.eye(6, dtype=dt, device=dev)
+    cam = torch.clamp(prob.obs_cam, 0, C).long()        # C = pad row (gathers a zero)
+    whole, slab_orders = segment_orders(prob, chunk) if seg is None else seg
+    opt6 = prob.cam_opt[:, None]                         # [C, 1]
+    Pc = _slab_len(P, chunk)
+    cost_of = _cost_fn(prob, cfg, chi2_th, group)
+
+    def seg6(order, vals):
+        """Segment-sum [p, O, ...] observation values into [C] camera rows."""
+        return ops.segment_sum(vals.reshape((-1,) + vals.shape[2:]), order)
 
     def slab_terms(s, R, t, xyz, lam):
         """Landmark slab ``s``: its factors and its camera-side sums, packed."""
@@ -107,7 +131,7 @@ def _lm_machinery(prob: BAProblem, cfg: EngineConfig, chi2_th, cg_iters: int, cg
         J_c = torch.where(opt_of_obs[..., None, None], J_c, 0.0)
         if sp.lm_opt is not None:
             J_l = torch.where(sp.lm_opt[:, None, None, None], J_l, 0.0)
-        rows_s = seg_rows[s]
+        rows_s = slab_orders[s.start // Pc]
 
         # landmark blocks (the same arithmetic as solve_ba's reduction)
         Hll = torch.einsum("poki,po,pokj->pij", J_l, w, J_l)
@@ -157,7 +181,7 @@ def _lm_machinery(prob: BAProblem, cfg: EngineConfig, chi2_th, cg_iters: int, cg
             xg = torch.cat([x, pad])[cam]                             # [P, O, 6]
             u = torch.einsum("poij,poi->pj", Y, xg)                   # [P, 3]
             wv = torch.einsum("pij,pj->pi", Hll_inv, u)
-            y = y - all_sum(seg6(seg_rows, torch.einsum("poij,pj->poi", Y, wv)), group)
+            y = y - all_sum(seg6(whole, torch.einsum("poij,pj->poi", Y, wv)), group)
             return torch.where(opt6, y, 0.0)
 
         def precond(x):
@@ -209,7 +233,7 @@ def _lm_machinery(prob: BAProblem, cfg: EngineConfig, chi2_th, cg_iters: int, cg
         cost = torch.where(accept, new_cost, cost)
         return R, t, xyz, lam, cost, cg_total + n_cg
 
-    return cost_of, body
+    return body
 
 
 def solve_ba_pcg(prob: BAProblem, cfg: EngineConfig, iters: int = 10, chi2_th: float = 5.991, lam0: float = 1e-4,
@@ -223,7 +247,7 @@ def solve_ba_pcg(prob: BAProblem, cfg: EngineConfig, iters: int = 10, chi2_th: f
     construction into slabs of ``SLAB_LMS`` landmarks; ``group``: the
     problem is this rank's landmark slice (``global_ba.shard_problem``)."""
     carry = lm_init_pcg(prob, cfg, chi2_th, lam0, cg_iters, group=group)
-    _, body = _lm_machinery(prob, cfg, chi2_th, cg_iters, cg_tol, chunk, group)
+    body = _lm_machinery(prob, cfg, chi2_th, cg_iters, cg_tol, chunk, group)
     for _ in range(iters):
         carry = body(carry)
     R, t, xyz, _, cost, cg_total = carry
@@ -235,7 +259,7 @@ def solve_ba_pcg(prob: BAProblem, cfg: EngineConfig, iters: int = 10, chi2_th: f
 def lm_init_pcg(prob: BAProblem, cfg: EngineConfig, chi2_th: float = 5.991, lam0: float = 1e-4,
                 cg_iters: int = 48, group=None):
     """The initial LM carry (R, t, xyz, lam, cost, cg_total) for solving in steps."""
-    cost_of, _ = _lm_machinery(prob, cfg, chi2_th, cg_iters, group=group)
+    cost_of = _cost_fn(prob, cfg, chi2_th, group)
     R_in = geo.orthogonalize(prob.R)
     dev = prob.xyz.device
     return (R_in, prob.t, prob.xyz, ops.scalar(lam0, prob.xyz.dtype, dev), cost_of(R_in, prob.t, prob.xyz)[0],
@@ -243,13 +267,15 @@ def lm_init_pcg(prob: BAProblem, cfg: EngineConfig, chi2_th: float = 5.991, lam0
 
 
 def lm_steps_pcg(prob: BAProblem, cfg: EngineConfig, carry, chi2_th: float = 5.991, n_iters: int = 1,
-                 cg_iters: int = 48, cg_tol: float = 1e-6, chunk: bool = True, group=None):
+                 cg_iters: int = 48, cg_tol: float = 1e-6, chunk: bool = True, group=None, seg=None):
     """Advance the LM carry by ``n_iters`` iterations (the arithmetic of
     ``solve_ba_pcg``: one chunk of the engine's asynchronous GBA). The
     engine bounds a chunk's stall by truncating CG (``cg_iters``) and
     loosening ``cg_tol``: a coarser camera solve per iteration, still held
-    by the accept rule."""
-    _, body = _lm_machinery(prob, cfg, chi2_th, cg_iters, cg_tol, chunk, group)
+    by the accept rule. ``seg``: ``segment_orders(prob, chunk)``, which a
+    caller stepping one problem many times builds once (else each call
+    builds it: two host reads)."""
+    body = _lm_machinery(prob, cfg, chi2_th, cg_iters, cg_tol, chunk, group, seg)
     for _ in range(n_iters):
         carry = body(carry)
     return carry

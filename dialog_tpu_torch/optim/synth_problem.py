@@ -13,7 +13,9 @@ preset's capacities by default): keyframes along a straight corridor, each
 making landmarks ahead of it and observing those of the keyframes just
 before it, as ``tests/test_kitti_capacity.py`` builds it for the reference
 (the same draws, so the same map), for ``chip_smoke.py``'s global-BA
-capacity phase.
+capacity phase. ``perturb_block_local`` moves such a map off its truth
+the way ``tests/test_block_ba.py``'s block-local corridor is moved, for
+block bundle adjustment.
 
 ``make_pose_graph`` builds a seeded Sim3 pose graph of the engine's shape
 (K keyframe slots, K tree + 4K covisibility + 1 loop edges): a ring of
@@ -276,3 +278,34 @@ def build_corridor_map(cfg: EngineConfig = KITTI00, seed: int = 0, n_kf: int = 1
                                   num_kfs=torch.tensor(n_kf, dtype=torch.int32),
                                   num_lms=torch.tensor(n_lm, dtype=torch.int32)))
     return type(m)(*[type(x)(*[y.to(device) for y in x]) if hasattr(x, "_fields") else x.to(device) for x in m])
+
+
+def perturb_block_local(m: MapState, n_kf: int, lm_per_kf: int, blk: int, seed: int = 0, rot: float = 0.01,
+                        trans: float = 0.05, lm_sigma: float = 0.1, edge: int = 3) -> MapState:
+    """The noise of ``tests/test_block_ba.py::corridor_map(block_local=True)``
+    on a ``build_corridor_map`` map (keyframe k in slot k, its landmarks in
+    slots k * lm_per_kf ...): keyframes 2 .. n_kf - 1 rotated about their
+    centre by N(0, ``rot``) rad and shifted by N(0, ``trans``) per axis,
+    landmarks by N(0, ``lm_sigma``), except that, with blocks of ``blk``
+    keyframes, the ``edge`` keyframes at each end of a block and the
+    landmarks made by the last ``edge`` of a block stay at their truth:
+    they are the neighbouring blocks' frozen anchors. The error class block
+    BA is built for. Numpy draws from ``seed``, in the test's order."""
+    rng = np.random.default_rng(seed)
+    dev = m.kfs.R.device
+    R, t = m.kfs.R.cpu().numpy().copy(), m.kfs.t.cpu().numpy().copy()
+    for k in range(2, n_kf):
+        if k % blk >= blk - edge or k % blk < edge:
+            continue
+        phi = rng.normal(0, rot, 3).astype(np.float32)
+        rho = rng.normal(0, trans, 3).astype(np.float32)
+        dR = geo.so3_exp(torch.from_numpy(phi)).numpy()
+        R[k] = dR @ R[k]
+        t[k] = dR @ t[k] + rho
+    n_lm = n_kf * lm_per_kf
+    noise = rng.normal(0, lm_sigma, (n_lm, 3)).astype(np.float32)
+    noise[(np.repeat(np.arange(n_kf), lm_per_kf) % blk) >= blk - edge] = 0.0
+    xyz = m.lms.xyz.clone()
+    xyz[:n_lm] += torch.from_numpy(noise).to(dev)
+    return m._replace(kfs=m.kfs._replace(R=torch.from_numpy(R).to(dev), t=torch.from_numpy(t).to(dev)),
+                      lms=m.lms._replace(xyz=xyz))

@@ -34,6 +34,14 @@ pipelined entry ticks only through ``track_features``, so its GBA runs at
 it at once. Over a ``torch.distributed`` group with more than one rank
 (``distributed.initialize``) each rank solves on its slice of the
 landmarks.
+
+The other modes of the reference's ``System``: ``block_refine`` (block
+bundle adjustment of the whole map, its blocks dealt out over the process
+group when there is one), ``set_localization_mode`` (track only: no new
+keyframe), ``reset``, ``save_checkpoint`` / ``load_checkpoint`` (a resume
+goes LOST and relocalizes against the loaded map), and the writers
+``save_trajectory_tum`` / ``save_trajectory_kitti`` /
+``save_keyframe_trajectory_tum`` / ``export_map_ply``.
 """
 
 from __future__ import annotations
@@ -50,7 +58,8 @@ from . import mapping, matching, tracking
 from . import pnp as _pnp
 from . import vocab as _vocab
 from .config import EngineConfig, Sensor
-from .containers import INVALID_ID, FrameArrays, MapMeta, MapState, empty_map, map_meta_len, pack_map_meta
+from .containers import (INVALID_ID, FrameArrays, MapMeta, MapState, empty_map, load_map, map_meta_len,
+                         pack_map_meta, save_map)
 from .frontend import extract_features
 from .init2view import initialize_two_view
 from .loopclosing import LoopCloser
@@ -58,7 +67,7 @@ from .optim.global_ba import (GBASnapshot, build_global_problem, fold_gba_result
                                shard_problem)
 from .optim.local_ba import local_bundle_adjustment
 from .optim.pose_only import pose_optimization
-from .optim.schur_pcg import lm_init_pcg, lm_steps_pcg
+from .optim.schur_pcg import lm_init_pcg, lm_steps_pcg, segment_orders
 from .stereo import depth_from_rgbd, stereo_match_frames
 
 NOT_INITIALIZED = "NOT_INITIALIZED"
@@ -134,6 +143,7 @@ class Engine:
         self._vocab_trained_kfs = 0                   # kf_count at the last (re)train
         self._loop = LoopCloser(cfg)
         self.loop_closing_enabled = True
+        self.localization_only = False
         # global BA after a loop correction: chunked into one LM iteration per
         # tracked frame or batch (``_gba_tick``) unless gba_async is off
         self.gba_async = True
@@ -464,6 +474,142 @@ class Engine:
 
         poses = self.final_poses()
         save_tum(path, [r.timestamp for r in self.trajectory], [p[0] for p in poses], [p[1] for p in poses])
+
+    def save_trajectory_kitti(self, path: str) -> None:
+        from .eval.trajectory import save_kitti
+
+        poses = self.final_poses()
+        save_kitti(path, [p[0] for p in poses], [p[1] for p in poses])
+
+    def save_keyframe_trajectory_tum(self, path: str) -> None:
+        """Keyframe poses only, ordered by insertion number (reference:
+        System::SaveKeyFrameTrajectoryTUM)."""
+        from .eval.trajectory import save_tum
+
+        valid, seq, ts = _host(self.m.kfs.valid), _host(self.m.kfs.seq), _host(self.m.kfs.timestamp)
+        kf_R, kf_t = _host(self.m.kfs.R), _host(self.m.kfs.t)
+        slots = np.nonzero(valid)[0]
+        slots = slots[np.argsort(seq[slots])]
+        save_tum(path, [float(ts[s]) for s in slots], [kf_R[s] for s in slots], [kf_t[s] for s in slots])
+
+    def export_map_ply(self, path: str) -> None:
+        """Landmarks (grey) and keyframe centres (red) as an ASCII PLY point
+        cloud (the reference's offline stand-in for the Pangolin viewer)."""
+        lv, kv = _host(self.m.lms.valid), _host(self.m.kfs.valid)
+        pts = _host(self.m.lms.xyz)[lv]
+        kR, kt = _host(self.m.kfs.R)[kv], _host(self.m.kfs.t)[kv]
+        cams = np.stack([-R.T @ t for R, t in zip(kR, kt)]) if kv.any() else np.zeros((0, 3))
+        with open(path, "w") as f:
+            f.write("ply\nformat ascii 1.0\n"
+                    f"element vertex {len(pts) + len(cams)}\n"
+                    "property float x\nproperty float y\nproperty float z\n"
+                    "property uchar red\nproperty uchar green\nproperty uchar blue\n"
+                    "end_header\n")
+            for p in pts:
+                f.write(f"{p[0]:.4f} {p[1]:.4f} {p[2]:.4f} 180 180 180\n")
+            for c in cams:
+                f.write(f"{c[0]:.4f} {c[1]:.4f} {c[2]:.4f} 255 40 40\n")
+
+    def save_checkpoint(self, path: str) -> None:
+        """The map as one ``.npz`` (``containers.save_map``; the JAX engine
+        reads and writes the same format)."""
+        save_map(self.m, path)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Resume from a saved map. An in-flight global BA belongs to the old
+        map and is abandoned; every record is baked to an absolute pose first.
+        The host's keyframe counters rebuild from the loaded masks; the engine
+        goes LOST at the newest keyframe and relocalizes against the loaded
+        map, retraining the vocabulary lazily from its descriptors."""
+        self._gba = None
+        self.flush()
+        self._bake_all_records()
+        self.m = load_map(self.cfg, path, device=self.device)
+        valid, seq = _host(self.m.kfs.valid), _host(self.m.kfs.seq)
+        self.kf_count = int(_host(self.m.num_kfs))
+        self._kf_valid_host = valid.copy()
+        self._recent_kf_allocs.clear()
+        self._seq_next = int(seq.max()) + 1
+        alive = np.nonzero(valid)[0]
+        if len(alive):
+            # the newest surviving keyframe by insertion number (slots are recycled)
+            last = int(alive[np.argmax(seq[alive])])
+            self.ref_kf = last
+            self._last_R = _host(self.m.kfs.R[last])
+            self._last_t = _host(self.m.kfs.t[last])
+            self._last_lm_ids = self.m.kfs.obs_lm[last]
+            self.state = LOST
+            self._vocab = None
+            self._bow_db = None
+            self._vocab_trained_kfs = 0
+        else:
+            self.state = NOT_INITIALIZED
+
+    def _bake_all_records(self) -> None:
+        """Every record to an absolute pose against the map as it stands, its
+        keyframe link dropped: called before the map is discarded (reset,
+        checkpoint load), so that no record re-composes against an unrelated
+        keyframe that later takes the same slot."""
+        kf_R, kf_t = _host(self.m.kfs.R), _host(self.m.kfs.t)
+        for rec in self.trajectory:
+            if rec.ref_kf >= 0 and rec.R_rel is not None:
+                rec.R = rec.R_rel @ kf_R[rec.ref_kf]
+                rec.t = rec.R_rel @ kf_t[rec.ref_kf] + rec.t_rel
+            rec.ref_kf, rec.R_rel, rec.t_rel = -1, None, None
+        self._recs_by_ref.clear()
+
+    def block_refine(self, n_blocks: int = 8, rounds: int = 2, iters: int = 6, cams_pb: int = 64,
+                     lms_pb: int = 4096) -> None:
+        """Block bundle adjustment of the whole map (``optim.block_ba``), its
+        blocks dealt out over the engine's process group when it has one.
+        Drains the pipeline first, rewrites poses and landmarks at once, and
+        re-bases tracking on the refined reference keyframe. Call when
+        tracking is idle. ``stats`` counts the observations cut and, unlike
+        the reference, the owned keyframes left out (ROADMAP R1)."""
+        from .optim.block_ba import block_bundle_adjustment
+
+        self.flush()
+        self.m = block_bundle_adjustment(self.m, self.cfg, n_blocks=n_blocks, rounds=rounds, iters=iters,
+                                         cams_pb=cams_pb, lms_pb=lms_pb, group=self.group, stats=self.stats)
+        self._last_R = _host(self.m.kfs.R[self.ref_kf])
+        self._last_t = _host(self.m.kfs.t[self.ref_kf])
+        self._vel = None
+        self._dev_state = None
+        self._refresh_kf_meta_blocking()
+
+    def set_localization_mode(self, on: bool) -> None:
+        """Freeze the map and track only (reference: ActivateLocalizationMode)."""
+        self.localization_only = on
+
+    def reset(self) -> None:
+        """Clear the map and start over (reference: System::Reset). An
+        in-flight global BA is abandoned, not drained; frames in flight are
+        resolved, then every record is baked to an absolute pose."""
+        self._gba = None
+        self.flush()
+        self._bake_all_records()
+        self._pending.clear()
+        self._pending_b.clear()
+        self._dev_state = None
+        self.m = empty_map(self.cfg, device=self.device)
+        self.state = NOT_INITIALIZED
+        self.kf_count = 0
+        self.ref_kf = 0
+        self.last_kf_frame_id = -(10**9)
+        self.last_kf_tracked = 0
+        self._init_frame = None
+        self._last_frame = None
+        self._last_lm_ids = None
+        self._last_R = np.eye(3, dtype=np.float32)
+        self._last_t = np.zeros(3, dtype=np.float32)
+        self._vel = None
+        self._vocab = None
+        self._bow_db = None
+        self._vocab_trained_kfs = 0
+        self._kf_valid_host = np.zeros(self.cfg.max_keyframes, bool)
+        self._recent_kf_allocs.clear()
+        self._seq_next = 0
+        self._loop = LoopCloser(self.cfg)
 
     @property
     def positions(self) -> np.ndarray:
@@ -846,6 +992,8 @@ class Engine:
     # --- keyframe policy (reference: NeedNewKeyFrame) --------------------
 
     def _need_keyframe(self, n_tracked: int, fid: int | None = None) -> bool:
+        if self.localization_only:
+            return False
         if not self._has_free_kf_slot():
             # at capacity: a standalone cull pass keeps freeing slots
             self.stats["kf_slot_full"] += 1
@@ -958,7 +1106,7 @@ class Engine:
         # with a loose tolerance (inexact Newton); small maps keep the full budget
         big = n_lms > 65536
         self._gba = {"prob": prob, "snap": snap, "carry": carry, "left": int(iters), "n_lms": n_lms,
-                     "cg_iters": 16 if big else 48, "cg_tol": 1e-4 if big else 1e-6}
+                     "seg": segment_orders(prob), "cg_iters": 16 if big else 48, "cg_tol": 1e-4 if big else 1e-6}
 
     def _gba_tick(self) -> None:
         """Advance the global BA in flight by one LM iteration; fold it in
@@ -967,7 +1115,7 @@ class Engine:
             return
         g = self._gba
         g["carry"] = lm_steps_pcg(g["prob"], self.cfg, g["carry"], chi2_th=self.cfg.chi2_mono,
-                                  cg_iters=g["cg_iters"], cg_tol=g["cg_tol"], group=self.group)
+                                  cg_iters=g["cg_iters"], cg_tol=g["cg_tol"], group=self.group, seg=g["seg"])
         g["left"] -= 1
         if g["left"] <= 0:
             self._finish_gba()

@@ -47,6 +47,14 @@ bit; two gloo ranks on CUDA tensors (``python -m dialog_tpu_torch.gba_rank``)
 against one rank on the card, for the dense branch and the PCG, within the
 CPU test's bounds (``tests/test_torch_distributed.py``: poses 1e-4,
 landmarks 1e-3).
+
+Block BA: kernel C's frozen-landmark mode (``lm_opt``, both variants)
+against its plain version as above, with the frozen rows' g_l and Y exactly
+zero; ``block_bundle_adjustment`` on the card against the CPU and a float64
+solve on a small stereo corridor (t within 2e-3, R within 5e-4), its
+launches, and a repeat bit for bit. The
+fixed-order segment sum and the global BA and pose graph built on it repeat
+bit for bit (ROADMAP D15).
 """
 
 import numpy as np
@@ -508,15 +516,130 @@ def test_schur_kernel_scratch_is_linear_in_the_observations(cuda):
 def test_schur_kernel_raises_where_it_has_no_path(cuda):
     prob = _ba_problem(cuda, n_pts=50)
     lam = torch.tensor(1e-3, device=cuda)
-    with pytest.raises(ValueError):
-        schur.schur_reduce(*_reduce_args(prob, lam), lm_opt=torch.ones(prob.xyz.shape[0], dtype=torch.bool,
+    with pytest.raises(ValueError, match="lm_opt"):   # a frozen-landmark mask of the wrong shape or type
+        schur.schur_reduce(*_reduce_args(prob, lam), lm_opt=torch.ones(prob.xyz.shape[0] - 1, dtype=torch.bool,
                                                                         device=cuda))
+    with pytest.raises(ValueError, match="lm_opt"):
+        schur.schur_reduce(*_reduce_args(prob, lam), lm_opt=torch.ones(prob.xyz.shape[0], device=cuda))
     args, _ = _random_problem(cuda, 8, 4, 16, schur.MAX_OBS + 1, False)
     with pytest.raises(ValueError, match="observations per landmark"):
         schur.schur_reduce(*args)
     args, _ = _random_problem(cuda, 9, schur.MAX_CAMS + 1, 16, 4, False)
     with pytest.raises(ValueError, match="cameras"):
         schur.schur_reduce(*args)
+
+
+@pytest.mark.parametrize("stereo", [False, True], ids=["mono", "stereo"])
+@pytest.mark.parametrize("O", [4, 12, 32])
+def test_schur_kernel_frozen_landmarks_match_plain_and_repeat(cuda, stereo, O):
+    """Kernel C's frozen-landmark mode (``lm_opt``) against the plain version:
+    a seeded half of the landmarks frozen; each output within 1e-4 as
+    above, the frozen rows' g_l and Y exactly zero, the call bitwise
+    repeatable and counted as ``schur_reduce_frozen``, and the frozen
+    landmarks' observations still in Hcc (pose-only edges)."""
+    args, kw = _random_problem(cuda, 300 + O, 33, 1003, O, stereo)
+    lm_opt = torch.from_numpy(np.random.default_rng(O).random(1003) < 0.5).to(cuda)
+    before = dict(common.launches)
+    got = schur.schur_reduce(*args, **kw, lm_opt=lm_opt)
+    again = schur.schur_reduce(*args, **kw, lm_opt=lm_opt)
+    want = schur.schur_reduce_plain(*args, **kw, lm_opt=lm_opt)
+    free = schur.schur_reduce_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert common.launches["schur_reduce_frozen"] == before["schur_reduce_frozen"] + 2
+    assert all(common.launches[k] == before[k] for k in ("schur_reduce", "schur_reduce_stereo"))
+    _assert_reduction_matches(got, want)
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+    frozen = ~lm_opt
+    assert int(torch.count_nonzero(got[1][frozen])) == 0 and int(torch.count_nonzero(got[2][frozen])) == 0
+    assert float((want[3] - free[3]).abs().max()) == 0.0   # Hcc does not depend on lm_opt
+    assert float((want[6] - free[6]).abs().max()) > 1e-3 * float(free[6].abs().max())
+
+
+def test_block_ba_on_the_card_follows_the_cpu(cuda):
+    """Block BA on a small KITTI-style stereo corridor (``build_corridor_map``
+    with each observation's right-x added from the truth, moved off its truth
+    block by block): every block solve runs kernel C in its frozen-landmark
+    mode, stereo rows included (rounds x 2 half-steps x n_blocks / 2 blocks x
+    iters launches); the camera-centre error falls at least 2.5-fold; the
+    card within 2e-3 in t and 5e-4 in R of the CPU and of a float64 solve
+    (the CPU's f32 solve lies 5.6e-4 in t from the float64 one on this
+    corridor, 72 m long: f32 sums in another order; without the right-x,
+    where only the frozen boundary fixes each block's scale, 1.9e-3); and a
+    second run on the card bit-equal."""
+    from dialog_tpu_torch.config import KITTI00
+    from dialog_tpu_torch.optim.block_ba import block_bundle_adjustment
+    from dialog_tpu_torch.optim.synth_problem import build_corridor_map, perturb_block_local
+
+    n_kf, lpk, nb, rounds, iters = 90, 100, 6, 2, 4
+    cfg = KITTI00.replace(max_keyframes=128, max_landmarks=16384, max_features=512)
+    m = build_corridor_map(cfg, n_kf=n_kf, lm_per_kf=lpk, device="cpu")
+    kfs = m.kfs
+    ok = kfs.feat_valid & (kfs.obs_lm >= 0)
+    z = torch.einsum("kj,kfj->kf", kfs.R[:, 2], m.lms.xyz[kfs.obs_lm.clamp(min=0).long()]) + kfs.t[:, None, 2]
+    m = m._replace(kfs=kfs._replace(u_right=torch.where(ok, kfs.uv[..., 0] - cfg.bf / z.clamp(min=1e-3), -1.0)))
+    t_gt = m.kfs.t[:n_kf].clone()
+    m = perturb_block_local(m, n_kf, lpk, -(-n_kf // nb), seed=1)
+    kw = dict(n_blocks=nb, rounds=rounds, iters=iters, cams_pb=32, lms_pb=2048)
+
+    def err(x):
+        c = -torch.einsum("kij,ki->kj", x.kfs.R[:n_kf].cpu(), x.kfs.t[:n_kf].cpu())
+        return float((c + t_gt).norm(dim=1).mean())
+
+    def to(x, f):
+        return type(x)(*[to(y, f) if hasattr(y, "_fields") else f(y) for y in x])
+
+    on_card = to(m, lambda y: y.to(cuda))
+    common.reset_launch_counts()
+    got = block_bundle_adjustment(on_card, cfg, **kw)
+    torch.cuda.synchronize()
+    launches = dict(common.launches)
+    again = block_bundle_adjustment(on_card, cfg, **kw)
+    want = block_bundle_adjustment(m, cfg, **kw)
+    exact = block_bundle_adjustment(to(m, lambda y: y.double() if y.is_floating_point() else y), cfg, **kw)
+    assert launches["schur_reduce_frozen"] == rounds * 2 * (nb // 2) * iters
+    assert launches["schur_reduce"] == launches["schur_reduce_stereo"] == 0
+    for ref in (want, exact):
+        dt = float((got.kfs.t.cpu().double() - ref.kfs.t.double()).abs().max())
+        dR = float((got.kfs.R.cpu().double() - ref.kfs.R.double()).abs().max())
+        assert dt < 2e-3 and dR < 5e-4, (dt, dR, err(m), err(got), err(want))
+    assert err(got) < err(m) / 2.5 and err(want) < err(m) / 2.5, (err(m), err(got), err(want))
+    for a, b in zip((got.kfs.R, got.kfs.t, got.lms.xyz), (again.kfs.R, again.kfs.t, again.lms.xyz)):
+        assert torch.equal(a, b)
+
+
+def test_segment_sum_repeats_on_the_card(cuda):
+    """``ops.segment_sum`` gives the same bits on every call on the card (a
+    float ``index_add_`` does not: ROADMAP D15) and agrees with the CPU."""
+    from dialog_tpu_torch import ops
+
+    rng = np.random.default_rng(0)
+    n, n_rows = 400_000, 2049
+    idx = torch.from_numpy(rng.integers(-10, n_rows + 10, n))
+    vals = torch.from_numpy(rng.normal(0, 1, (n, 6)).astype(np.float32))
+    order = ops.segment_order(idx.to(cuda), n_rows)
+    got = ops.segment_sum(vals.to(cuda), order)
+    assert all(torch.equal(got, ops.segment_sum(vals.to(cuda), order)) for _ in range(3))
+    want = ops.segment_sum(vals, ops.segment_order(idx, n_rows))
+    assert float((got.cpu() - want).abs().max()) < 1e-4
+
+
+def test_global_ba_and_pose_graph_repeat_on_the_card(cuda):
+    """The global BA (the PCG branch: its segment sums in a fixed order) and
+    the pose graph repeat bit for bit on the card (ROADMAP D15, closed)."""
+    from dialog_tpu_torch.optim.global_ba import global_bundle_adjustment
+    from dialog_tpu_torch.optim.pose_graph import solve_pose_graph
+    from dialog_tpu_torch.optim.synth_problem import make_pose_graph
+    from test_torch_distributed import BRANCHES, engine_map
+
+    cfg, m = engine_map(BRANCHES["pcg"])
+    m = type(m)(*[type(x)(*[y.to(cuda) for y in x]) if hasattr(x, "_fields") else x.to(cuda) for x in m])
+    a = global_bundle_adjustment(m, cfg, iters=4)
+    b = global_bundle_adjustment(m, cfg, iters=4)
+    for x, y in zip((a.kfs.R, a.kfs.t, a.lms.xyz, a.kfs.obs_lm), (b.kfs.R, b.kfs.t, b.lms.xyz, b.kfs.obs_lm)):
+        assert torch.equal(x, y)
+    pg = make_pose_graph(seed=0, K=256, device=cuda)
+    p, q = solve_pose_graph(pg, iters=10), solve_pose_graph(pg, iters=10)
+    assert all(torch.equal(x, y) for x, y in zip(p, q))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -5,8 +5,8 @@ imports ``dialog_tpu_torch``, every one of its submodules and
 ``chip_smoke``, then extracts features from a 160x120 image with the port's
 plain frontend (one image and a batch of two), trains and queries a small
 vocabulary, solves a PnP problem, a Sim3 RANSAC problem, a seeded Sim3
-pose graph and a seeded BA problem by the Schur PCG, and folds the result
-into a map. A static check finds no JAX import and no reference to the
+pose graph and a seeded BA problem by the Schur PCG, folds the result
+into a map, and runs a block BA on a small corridor map. A static check finds no JAX import and no reference to the
 JAX package in the port's sources or in ``chip_smoke.py``.
 """
 
@@ -75,6 +75,15 @@ m1 = global_ba.fold_gba_result(m0, snap.kf_seq, snap.kf_valid, snap.lm_valid, sn
 assert bool((m1.kfs.t == m0.kfs.t).all())   # no valid keyframe: nothing folds in
 assert {"dialog_tpu_torch.optim.schur_pcg", "dialog_tpu_torch.optim.global_ba", "dialog_tpu_torch.distributed",
         "dialog_tpu_torch.gba_rank"} <= set(names)
+from dialog_tpu_torch.config import KITTI00
+from dialog_tpu_torch.optim import block_ba
+kc = KITTI00.replace(max_keyframes=16, max_landmarks=256, max_features=64)
+cm = synth_problem.build_corridor_map(kc, n_kf=12, lm_per_kf=10, device="cpu")
+cm = synth_problem.perturb_block_local(cm, 12, 10, 6)
+st = {}
+cb = block_ba.block_bundle_adjustment(cm, kc, n_blocks=2, rounds=1, iters=2, cams_pb=12, lms_pb=64, stats=st)
+assert bool(torch.isfinite(cb.kfs.t).all()) and st["block_ba_kf_dropped"] == 0
+assert "dialog_tpu_torch.optim.block_ba" in names
 assert "jax" not in [m for m in sys.modules if sys.modules[m] is not None]
 print(len(names), int(fr.valid.sum()), tuple(fr.desc.shape))
 """
