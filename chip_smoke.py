@@ -104,7 +104,29 @@ Needs one CUDA card and nvcc; exits non-zero without them. It
    full-width path: the KITTI00 corridor of ``gba_capacity`` moved off its
    truth block by block, ``Engine.block_refine`` with 32 blocks, 2 rounds of
    6 iterations: no owned keyframe left out, the camera-centre error down
-   2.5-fold, kernel C's frozen mode launched exactly 384 times.
+   2.5-fold, kernel C's frozen mode launched exactly 384 times;
+14. runs ``kernels.selfcheck``: kernel B at n = 700, m = 900 in its four gate
+   cases and its mutual mode, kernel A on a 123 x 210 image and in its
+   batched launch, bit for bit, and kernel C through ``solve_ba`` (mono,
+   stereo, half the landmarks frozen) within 2e-3 / 5e-3 of the CPU's solve;
+15. the ``cli`` phase: the mono path's first 40 frames (RGB files, equal
+   channels) and the RGB-D path's first 20 (16-bit depth, stamps 12 ms late,
+   a TUM1 settings file written here) as TUM sequences, the stereo path's
+   first 32 pairs as a KITTI sequence with its devkit poses, and 20 EuRoC
+   pairs at 752x480 (the stereo sweep scaled into EuRoC's cameras, no
+   distortion), written with ``datasets.png.write_png``; then ``cli.main``
+   in this process: ``run-tum`` (with ``--render``), ``run-tum --pipelined``,
+   ``run-tum --rgbd``, ``run-kitti --gt``, ``run-euroc`` and ``run-synth
+   --trajectory loop`` over a 120-frame lap. Each run's engine equals, record by
+   record and map leaf by leaf, the engine driven in this process on
+   ``png.read_gray`` of the same files (with a RunLogger: a row per frame);
+   the files decode to the frames written; the path's gates hold (kernel A
+   once per image); the trajectory file parses back and the render is a PNG
+   of its canvas. Printed, not gated: the CLI's median track time and
+   frames/s, the decode of a 640x480 RGB and a 1241x376 gray file (the whole
+   read, and the row unfilter native against plain on the inflated stream,
+   as written and Paeth-filtered), and the share of the loop's wall time
+   spent waiting for decoded frames.
 
 Each path runs on a fresh engine, with every kernel's launch count reset just
 before it and read just after (``hamming_best2``, the standalone form of
@@ -224,6 +246,15 @@ DEVICE_KERNELS = {
     "schur_reduce_frozen": ("schur_obs", "schur_cams"),
 }
 HOST_PACED = 1.5        # a wrapper loop this many times slower than the device's own time is paced by the host
+# the cli phase: the mono, RGB-D and stereo paths' frames as TUM and KITTI sequences on disk, and a EuRoC one
+DEPTH_LAG = 0.012       # s: TUM depth stamps behind their colour frames (inside associate's 20 ms)
+# frames of each run, cut from the paths' own (56, 24, 48, 24) to keep the script inside its time limit on slower
+# hosts, where it passes 900 s (each run is driven twice, by the CLI and by its in-process twin)
+CLI_TUM_FRAMES, CLI_RGBD_FRAMES, CLI_KITTI_FRAMES, CLI_EUROC_FRAMES = 40, 20, 32, 20
+EUROC_SCALE = 0.3       # the stereo sweep's depths 4-12 -> 1.2-3.6 m, inside th_depth x EuRoC's 0.10 m baseline
+CLI_SYNTH_FRAMES = 120  # run-synth's orbit: a lap in CLI_SYNTH_FRAMES frames, 3 degrees a frame (the engine never
+                        # initializes on a lap of 100 frames, or of run-synth's default 60)
+CLI_SYNTH_ATE_SPAN = LOOP_ATE_SPAN
 
 KERNELS = {
     "fast_nms_rank": ("dialog_tpu_torch/csrc/fast.cu", "dialog_tpu/kernels/fast.py:118"),
@@ -2096,6 +2127,392 @@ def check_schur_solve(prob, cfg, kname: str, z_med: float) -> float:
 
 
 # ---------------------------------------------------------------------------
+# the kernels' self-check and the CLI over sequences on disk
+# ---------------------------------------------------------------------------
+
+
+def check_selfcheck(smi) -> dict:
+    """``kernels.selfcheck`` on the card: every case must pass."""
+    from dialog_tpu_torch.kernels import selfcheck
+
+    t0 = time.perf_counter()
+    res = selfcheck.run()
+    out = {name: {"ok": ok, **({"max_diff": d} if d else {})} for name, (ok, d) in res.items()}
+    say(f"selfcheck ({time.perf_counter() - t0:.1f} s): " + json.dumps(out) + f" on {smi}")
+    bad = [name for name, (ok, _) in res.items() if not ok]
+    if bad:
+        fail(f"selfcheck: {bad} differ from their plain versions")
+    return out
+
+
+def _u8(img) -> np.ndarray:
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _rgb(img) -> np.ndarray:
+    """An 8-bit frame as an RGB file's pixels, equal channels: its gray reading is the frame."""
+    g = _u8(img)
+    return np.stack([g, g, g], -1)
+
+
+def write_tum(root, scene, frames, fps, depths=None) -> dict:
+    """A TUM sequence: rgb/ (RGB, equal channels), rgb.txt, groundtruth.txt,
+    and with ``depths`` depth/ (16-bit, TUM's units) stamped DEPTH_LAG late
+    and depth.txt. Returns the frames as written, by file."""
+    from dialog_tpu_torch.datasets.png import write_png
+
+    (root / "rgb").mkdir(parents=True)
+    rgb, dep, gt, written = [], [], [], {}
+    for i, img in enumerate(frames):
+        ts = 1305031102.175304 + i / fps
+        write_png(str(root / "rgb" / f"{ts:.6f}.png"), _rgb(img))
+        written[str(root / "rgb" / f"{ts:.6f}.png")] = _u8(img)
+        rgb.append(f"{ts:.6f} rgb/{ts:.6f}.png")
+        if depths is not None:
+            (root / "depth").mkdir(exist_ok=True)
+            d16 = np.clip(depths[i], 0, 65535).astype(np.uint16)
+            write_png(str(root / "depth" / f"{ts + DEPTH_LAG:.6f}.png"), d16)
+            written[str(root / "depth" / f"{ts + DEPTH_LAG:.6f}.png")] = d16
+            dep.append(f"{ts + DEPTH_LAG:.6f} depth/{ts + DEPTH_LAG:.6f}.png")
+        C = -scene.R[i].T @ scene.t[i]
+        gt.append(f"{ts:.6f} {C[0]:.6f} {C[1]:.6f} {C[2]:.6f} 0 0 0 1")
+    (root / "rgb.txt").write_text("# color images\n# timestamp filename\n" + "\n".join(rgb) + "\n")
+    (root / "groundtruth.txt").write_text("# ground truth\n" + "\n".join(gt) + "\n")
+    if depths is not None:
+        (root / "depth.txt").write_text("# depth images\n" + "\n".join(dep) + "\n")
+    return written
+
+
+def write_kitti(root, scene, pairs, fps) -> dict:
+    """A KITTI odometry sequence: image_0/, image_1/, times.txt, and the
+    devkit poses (T_wc, 3x4 a line) beside it as ``<root>.txt``."""
+    from dialog_tpu_torch.datasets.png import write_png
+
+    written, rows = {}, []
+    for cam in ("image_0", "image_1"):
+        (root / cam).mkdir(parents=True)
+    for i, pair in enumerate(pairs):
+        for cam, img in zip(("image_0", "image_1"), pair):
+            write_png(str(root / cam / f"{i:06d}.png"), _u8(img))
+            written[str(root / cam / f"{i:06d}.png")] = _u8(img)
+        P = np.hstack([scene.R[i].T, (-scene.R[i].T @ scene.t[i])[:, None]])
+        rows.append(" ".join(f"{x:.9e}" for x in P.reshape(-1)))
+    (root / "times.txt").write_text("\n".join(f"{i / fps:.6e}" for i in range(len(pairs))) + "\n")
+    root.with_suffix(".txt").write_text("\n".join(rows) + "\n")
+    return written
+
+
+def write_euroc(root, scene, pairs, fps) -> dict:
+    """A EuRoC MAV sequence: mav0/cam0 and cam1 (data.csv, data/<ns>.png) and
+    mav0/state_groundtruth_estimate0/data.csv."""
+    from dialog_tpu_torch.datasets.png import write_png
+
+    written, gt = {}, []
+    for c, cam in enumerate(("cam0", "cam1")):
+        (root / "mav0" / cam / "data").mkdir(parents=True)
+        lines = ["#timestamp [ns],filename"]
+        for i, pair in enumerate(pairs):
+            ns = 1403636579763555584 + int(i * 1e9 / fps)
+            write_png(str(root / "mav0" / cam / "data" / f"{ns}.png"), _u8(pair[c]))
+            written[str(root / "mav0" / cam / "data" / f"{ns}.png")] = _u8(pair[c])
+            lines.append(f"{ns},{ns}.png")
+            if c == 0:
+                gt.append(",".join(str(x) for x in (ns, *(-scene.R[i].T @ scene.t[i]))))
+        (root / "mav0" / cam / "data.csv").write_text("\n".join(lines) + "\n")
+    (root / "mav0" / "state_groundtruth_estimate0").mkdir(parents=True)
+    (root / "mav0" / "state_groundtruth_estimate0" / "data.csv").write_text(
+        "#timestamp, p_RS_R_x [m], p_RS_R_y [m], p_RS_R_z [m]\n" + "\n".join(gt) + "\n")
+    return written
+
+
+def _settings_yaml(path, cfg) -> str:
+    """A reference-format settings file for ``cfg``'s camera (no distortion)."""
+    path.write_text(
+        f"Camera.fx: {cfg.fx}\nCamera.fy: {cfg.fy}\nCamera.cx: {cfg.cx}\nCamera.cy: {cfg.cy}\n"
+        "Camera.k1: 0.0\nCamera.k2: 0.0\nCamera.p1: 0.0\nCamera.p2: 0.0\n"
+        f"Camera.width: {cfg.width}\nCamera.height: {cfg.height}\nCamera.fps: {cfg.fps}\nCamera.bf: {cfg.bf}\n"
+        f"ThDepth: {cfg.th_depth}\nDepthMapFactor: {cfg.depth_map_factor}\n"
+        f"ORBextractor.nFeatures: {cfg.n_features}\n")
+    return str(path)
+
+
+def euroc_sequence():
+    """The stereo sweep (``make_scene(seed=7, n_points=6000)``) scaled by
+    EUROC_SCALE into the EuRoC cameras (752x480, their 0.10 m baseline, no
+    distortion), and its first CLI_EUROC_FRAMES (left, right) pairs."""
+    from dialog_tpu_torch.cli import EUROC_DEFAULT
+    from dialog_tpu_torch.config import Sensor
+    from dialog_tpu_torch.datasets import synth
+
+    cfg = EUROC_DEFAULT.replace(k1=0.0, k2=0.0, p1=0.0, p2=0.0, sensor=Sensor.STEREO)
+    scene = synth.make_scene(seed=7, n_points=6000, n_frames=168, cfg=cfg)
+    scene = scene._replace(xyz=scene.xyz * np.float32(EUROC_SCALE), t=scene.t * np.float32(EUROC_SCALE))
+    right = scene._replace(t=scene.t - np.array([cfg.baseline, 0.0, 0.0], np.float32))
+    return cfg, scene, [(synth.render_image(scene, i), synth.render_image(right, i)) for i in range(CLI_EUROC_FRAMES)]
+
+
+def paeth_stream(rows, bpp: int):
+    """Rows uint8 [H, n] as a PNG image stream [H, 1 + n] whose every row has
+    filter type 4 (Paeth), the case that unfilters byte by byte."""
+    x = rows.astype(np.int16)
+    left, up, ul = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    left[:, bpp:], up[1:], ul[1:, bpp:] = x[:, :-bpp], x[:-1], x[:-1, :-bpp]
+    p = left + up - ul
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+    pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+    return np.concatenate([np.full((len(x), 1), 4, np.uint8), ((x - pred) & 0xFF).astype(np.uint8)], 1)
+
+
+def _twin(cfg, dev, log_path, method, items):
+    """The engine the CLI builds, driven in this process on ``png`` readings
+    of the same files, with a RunLogger attached: ``items`` yields (ts,
+    arrays) per frame. Returns the engine and its log's frame rows."""
+    from dialog_tpu_torch.frontend import extract_features
+    from dialog_tpu_torch.instrument import RunLogger
+    from dialog_tpu_torch.system import Engine
+
+    eng = Engine(cfg, device=dev)
+    eng.logger = RunLogger(log_path)
+    for ts, arrays in items:
+        t0 = time.perf_counter()
+        if method == "async":
+            img = torch.as_tensor(arrays[0], dtype=torch.float32).to(dev)
+            eng.track_features_async(eng._undistort(extract_features(img, cfg)), ts)
+        else:
+            rec = getattr(eng, method)(*arrays, ts)
+            eng.logger.log_frame(rec, time.perf_counter() - t0)
+    eng.flush()
+    if method == "async":   # records resolve a few frames behind: logged once all are in
+        for rec in eng.trajectory:
+            eng.logger.log_frame(rec, 0.0)
+    eng.logger.close()
+    rows = [json.loads(line) for line in open(log_path)]
+    return eng, [r for r in rows if "frame" in r]
+
+
+def _run_cli(argv):
+    """``cli.main(argv)`` in this process, launch counts reset just before and
+    read just after; returns (the engine it built, its output, launches)."""
+    import contextlib
+    import io
+
+    from dialog_tpu_torch import cli, system
+    from dialog_tpu_torch.kernels import common
+
+    made, Engine = [], system.Engine
+
+    class Recorded(Engine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    buf = io.StringIO()
+    system.Engine = Recorded
+    try:
+        torch.cuda.synchronize()
+        common.reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        torch.cuda.synchronize()
+        launches = dict(common.launches)
+    finally:
+        system.Engine = Engine
+    text = buf.getvalue()
+    for line in text.splitlines():
+        say(f"  cli: {line}")
+    if len(made) != 1:
+        fail(f"cli {argv[0]}: built {len(made)} engines, 1 expected")
+    return made[0], text, launches
+
+
+def _parse_trajectory(path, fmt) -> np.ndarray:
+    """Camera centres [N, 3] from a TUM (8 fields) or KITTI (12 fields) file."""
+    rows = np.array([[float(x) for x in line.split()] for line in open(path) if line.strip()])
+    if rows.shape[1] != {"tum": 8, "kitti": 12}[fmt]:
+        fail(f"{path}: {rows.shape[1]} fields a line in a {fmt} trajectory")
+    return rows[:, 1:4] if fmt == "tum" else rows[:, [3, 7, 11]]
+
+
+def cli_phase(seqs: dict, dev, smi) -> dict:
+    """The CLI's ``run-*`` subcommands over sequences written to disk, each
+    held against the engine driven in this process on the same files.
+
+    ``seqs``: the scenes and frames of the mono, RGB-D and stereo paths (the
+    first CLI_TUM_FRAMES, CLI_RGBD_FRAMES and CLI_KITTI_FRAMES of them). For
+    each run, gates: (a) the CLI's engine equals its in-process twin (every
+    record and every map leaf, bit for bit; the twin's RunLogger JSONL has a
+    row per frame); (b) the files decode to the uint8 frames written; (c)
+    the path's gates (``check_path``) on the run, with kernel A once per
+    image; (d) the trajectory file parses back to the engine's camera
+    centres, and the render is a PNG of the renderer's canvas. Prints the
+    CLI's own track times, one decode per image size (the whole read, and
+    the row unfilter native against plain) and the share of the loop's wall
+    time spent waiting for decoded frames."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from dialog_tpu_torch.cli import KITTI_DEFAULT, SYNTH_CONFIG, settings
+    from dialog_tpu_torch.config import Sensor
+    from dialog_tpu_torch.datasets import euroc, kitti, png, synth, tum
+    from dialog_tpu_torch.eval.render import SIZE
+
+    out = {}
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent / "build") as tmp:
+        root = Path(tmp)
+        ecfg, escene, epairs = euroc_sequence()
+        written = {}
+        mono, rgbd = seqs["mono"][1][:CLI_TUM_FRAMES], seqs["rgbd"][1][:CLI_RGBD_FRAMES]
+        stereo = seqs["stereo"][1][:CLI_KITTI_FRAMES]
+        written.update(write_tum(root / "tum", seqs["mono"][0], mono, 30.0))
+        rcfg = seqs["rgbd"][2]
+        written.update(write_tum(root / "tum_rgbd", seqs["rgbd"][0], [x[0] for x in rgbd], 30.0, [x[1] for x in rgbd]))
+        written.update(write_kitti(root / "kitti" / "00", seqs["stereo"][0], stereo, 10.0))
+        written.update(write_euroc(root / "euroc", escene, epairs, 20.0))
+        rgbd_yaml = _settings_yaml(root / "TUM1.yaml", rcfg)
+        euroc_yaml = _settings_yaml(root / "EuRoC.yaml", ecfg)
+        bad = [p for p, want in written.items() if not np.array_equal(
+            png.read_unchanged(p) if want.dtype == np.uint16 else png.read_gray(p), want)]
+        say(f"cli: {len(written)} files written; {len(written) - len(bad)} decode to the frames written")
+        if bad:
+            fail(f"cli: {len(bad)} files decode to other pixels than were written, e.g. {bad[:3]}")
+
+        # decode times (medians): the whole read, and the row unfilter on the inflated stream, native against the
+        # plain numpy one, on the file's own stream (filter 0, as write_png writes) and on its rows Paeth-filtered
+        def median_ms(fn, reps):
+            ts = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                ts.append(time.perf_counter() - t0)
+            return float(np.median(ts) * 1e3)
+
+        rgb640 = next(p for p in written if "/tum/rgb/" in p)
+        gray1241 = next(p for p in written if "/image_0/" in p)
+        out["decode_ms"] = {}
+        for name, p in (("rgb_640x480", rgb640), ("gray_1241x376", gray1241)):
+            raw, bpp = png.inflate(p)[:2]
+            paeth = paeth_stream(png.unfilter(raw, bpp), bpp)
+            rows = png.unfilter(raw, bpp)
+            for got in (png.unfilter(paeth, bpp), png.unfilter_plain(paeth, bpp), png.unfilter_plain(raw, bpp)):
+                if not np.array_equal(got, rows):
+                    fail(f"cli: the unfilters of {p} disagree")
+            out["decode_ms"][name] = {
+                "read_gray": median_ms(lambda: png.read_gray(p), 9),
+                "unfilter": median_ms(lambda: png.unfilter(raw, bpp), 9),
+                "unfilter_plain": median_ms(lambda: png.unfilter_plain(raw, bpp), 3),
+                "paeth_unfilter": median_ms(lambda: png.unfilter(paeth, bpp), 9),
+                "paeth_unfilter_plain": median_ms(lambda: png.unfilter_plain(paeth, bpp), 1)}
+        say(f"cli: decode ms per image {json.dumps(out['decode_ms'])} on {smi}")
+
+        def tum_items(seq, rgbd=False):
+            if rgbd:
+                return [(ts, (png.read_gray(os.path.join(seq, r)).astype(np.float32),
+                              png.read_unchanged(os.path.join(seq, d)).astype(np.float32)))
+                        for ts, r, d in tum.associate(tum._read_list(os.path.join(seq, "rgb.txt")),
+                                                      tum._read_list(os.path.join(seq, "depth.txt")))]
+            return [(ts, (png.read_gray(os.path.join(seq, r)).astype(np.float32),))
+                    for ts, r in tum._read_list(os.path.join(seq, "rgb.txt"))]
+
+        kseq, eseq = str(root / "kitti" / "00"), str(root / "euroc")
+        kitti_items = [(ts, (png.read_gray(os.path.join(kseq, "image_0", f"{i:06d}.png")).astype(np.float32),
+                             png.read_gray(os.path.join(kseq, "image_1", f"{i:06d}.png")).astype(np.float32)))
+                       for i, ts in enumerate(kitti.read_times(kseq))]
+        e0, e1 = (os.path.join(eseq, "mav0", c) for c in ("cam0", "cam1"))
+        euroc_items = [(ts, (png.read_gray(os.path.join(e0, "data", n)).astype(np.float32),
+                             png.read_gray(os.path.join(e1, "data", n)).astype(np.float32)))
+                       for ts, n in euroc._read_csv(e0)]
+        mono_scene, rgbd_scene, stereo_scene = seqs["mono"][0], seqs["rgbd"][0], seqs["stereo"][0]
+        n_mono, n_rgbd, n_st, n_eu = len(mono), len(rgbd), len(stereo), len(epairs)
+        render = str(root / "map.png")
+        traj = str(root / "traj.txt")
+        mono_gates = dict(with_scale=True, ate_gate=ATE_GATE, min_kfs=4)
+        mono_k = {"fast_nms_rank": n_mono, "hamming_mutual": 1, "schur_reduce": 1}
+        # name -> (argv, twin's config, twin's entry, twin's frames, scene, trajectory format, gates, launches)
+        runs = {
+            "cli_tum": (["run-tum", str(root / "tum"), "--render", render],
+                        settings(None, Sensor.MONOCULAR), "track_image", tum_items(str(root / "tum")), mono_scene,
+                        "tum", mono_gates, mono_k, {"fast_nms_rank": n_mono}),
+            "cli_pipelined": (["run-tum", str(root / "tum"), "--pipelined"], settings(None, Sensor.MONOCULAR),
+                              "async", tum_items(str(root / "tum")), mono_scene, "tum", mono_gates, mono_k,
+                              {"fast_nms_rank": n_mono}),
+            "cli_rgbd": (["run-tum", str(root / "tum_rgbd"), "--rgbd", "--settings", rgbd_yaml],
+                         settings(rgbd_yaml, Sensor.RGBD), "track_rgbd", tum_items(str(root / "tum_rgbd"), True),
+                         rgbd_scene, "tum", dict(with_scale=False, ate_gate=RGBD_ATE_GATE, min_kfs=3),
+                         {"fast_nms_rank": n_rgbd, "hamming_mutual": 1, "schur_reduce_stereo": 1},
+                         {"fast_nms_rank": n_rgbd}),
+            "cli_kitti": (["run-kitti", kseq, "--gt", str(root / "kitti" / "00.txt")],
+                          settings(None, Sensor.STEREO, KITTI_DEFAULT), "track_stereo", kitti_items, stereo_scene,
+                          "kitti", dict(with_scale=False, ate_gate=STEREO_ATE_GATE, min_kfs=4),
+                          {"fast_nms_rank": 2 * n_st, "hamming_mutual": 1, "schur_reduce_stereo": 1},
+                          {"fast_nms_rank": 2 * n_st, "schur_reduce": 0}),
+            "cli_euroc": (["run-euroc", eseq, "--settings", euroc_yaml], settings(euroc_yaml, Sensor.STEREO),
+                          "track_stereo", euroc_items, escene, "tum",
+                          dict(with_scale=False, ate_gate=STEREO_ATE_GATE, min_kfs=3),
+                          {"fast_nms_rank": 2 * n_eu, "hamming_mutual": 1, "schur_reduce_stereo": 1},
+                          {"fast_nms_rank": 2 * n_eu, "schur_reduce": 0}),
+        }
+        for name, (argv, cfg, method, items, scene, fmt, gates, min_k, max_k) in runs.items():
+            t0 = time.perf_counter()
+            eng, text, launches = _run_cli(argv + ["--out", traj, "--device", "cuda"])
+            wall = time.perf_counter() - t0
+            twin, rows = _twin(cfg, dev, str(root / f"{name}.jsonl"), method, items)
+            out[name] = _cli_gates(name, eng, twin, rows, text, launches, wall, traj, fmt, smi)
+            out[name]["path"] = check_path(name, twin, scene, launches, min_launches=min_k, max_launches=max_k,
+                                           **gates)
+            if name == "cli_tum":
+                img = png.read_unchanged(render)
+                if img.shape != (SIZE[1], SIZE[0], 3) or img.dtype != np.uint8:
+                    fail(f"cli_tum: the render is {img.dtype} {img.shape}, not an RGB PNG of {SIZE}")
+
+        # run-synth over the orbit: no files, the twin observes the same scene
+        argv = ["run-synth", "--trajectory", "loop", "--frames", str(CLI_SYNTH_FRAMES)]
+        t0 = time.perf_counter()
+        eng, text, launches = _run_cli(argv + ["--out", traj, "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        scene = synth.make_scene(seed=0, n_points=1500, n_frames=CLI_SYNTH_FRAMES, trajectory="loop",
+                                 cfg=SYNTH_CONFIG)
+        items = [(float(i) / 30.0, (synth.observe(scene, i, noise_px=0.5, device=dev)[0],))
+                 for i in range(CLI_SYNTH_FRAMES)]
+        twin, rows = _twin(SYNTH_CONFIG, dev, str(root / "cli_synth.jsonl"), "track_features", items)
+        out["cli_synth"] = _cli_gates("cli_synth", eng, twin, rows, text, launches, wall, traj, "tum", smi)
+        out["cli_synth"]["path"] = check_path(
+            "cli_synth", twin, scene, launches, with_scale=True, ate_gate=CLI_SYNTH_ATE_SPAN * _span(scene),
+            min_kfs=4, min_launches={"hamming_mutual": 1, "schur_reduce": 1}, max_launches={"fast_nms_rank": 0})
+    return out
+
+
+def _span(scene) -> float:
+    C = np.stack([-R.T @ t for R, t in zip(scene.R, scene.t)])
+    return float(np.linalg.norm(C.max(0) - C.min(0)))
+
+
+def _cli_gates(name, eng, twin, rows, text, launches, wall, traj, fmt, smi) -> dict:
+    """Gates (a) and (d) of ``cli_phase`` on one run, and its printed numbers."""
+    import re
+
+    rec, leaves = _first_difference(eng, twin)
+    if rec is not None or leaves:
+        fail(f"{name}: the CLI's engine parts from its in-process twin at record {rec}, map leaves {leaves}")
+    if len(rows) != len(twin.trajectory) or [r["frame"] for r in rows] != [r.frame_id for r in twin.trajectory]:
+        fail(f"{name}: the twin's RunLogger holds {len(rows)} frame rows for {len(twin.trajectory)} records")
+    centres = _parse_trajectory(traj, fmt)
+    if centres.shape != eng.positions.shape or not np.allclose(centres, eng.positions, atol=1e-5, rtol=1e-6):
+        fail(f"{name}: the trajectory file does not parse back to the engine's camera centres")
+    m = re.search(r"median track time: ([\d.]+) ms \| mean: ([\d.]+) ms \| fps: ([\d.]+)", text)
+    w = re.search(r"input wait: ([\d.]+) s of ([\d.]+) s", text)
+    res = {"frames": len(eng.trajectory), "ok": sum(r.state == "OK" for r in eng.trajectory),
+           "kf_count": eng.kf_count, "median_track_ms": float(m.group(1)), "mean_track_ms": float(m.group(2)),
+           "fps": float(m.group(3)), "cli_wall_s": wall, "launches": launches}
+    if w:
+        res["input_wait_s"], res["loop_wall_s"] = float(w.group(1)), float(w.group(2))
+        res["input_wait_share"] = res["input_wait_s"] / max(res["loop_wall_s"], 1e-9)
+    say(f"{name}: equal to its in-process twin bit for bit ({len(rows)} logged frames); " + json.dumps(
+        {k: v for k, v in res.items() if k != "launches"}) + f" on {smi}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -2266,6 +2683,16 @@ def main() -> int:
     import dialog_tpu_torch  # noqa: F401  (pins exact f32)
     from dialog_tpu_torch.kernels import build
 
+    phase_s = {}
+    last = [t_script]
+
+    def mark(name):
+        """Print and keep the wall seconds since the previous mark (the script's time budget, by phase)."""
+        now = time.perf_counter()
+        phase_s[name] = round(now - last[0], 1)
+        say(f"phase {name}: {phase_s[name]} s, {now - t_script:.1f} s into the script")
+        last[0] = now
+
     t0 = time.perf_counter()
     build.load_all()
     say(f"build: {time.perf_counter() - t0:.2f} s total, per kernel "
@@ -2274,6 +2701,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"ptxas {name}: {line.strip()}")
+    mark("build")
 
     # mono path: kernel A once per image (all pyramid levels in one launch),
     # kernel B once per mutual match
@@ -2284,6 +2712,7 @@ def main() -> int:
                min_launches={"fast_nms_rank": N_FRAMES, "hamming_mutual": 1, "schur_reduce": 1},
                max_launches={"fast_nms_rank": N_FRAMES})
     err_c, rel_c, prob = check_schur(eng, cfg, dev)
+    mark("mono")
 
     # stereo path: two extractions per frame; every local BA takes the uR variant
     sscene, simages, seng, sfps, slaunches = run_path("stereo", dev)
@@ -2293,13 +2722,15 @@ def main() -> int:
                min_launches={"fast_nms_rank": 2 * n_st, "hamming_mutual": 1, "schur_reduce_stereo": 1},
                max_launches={"fast_nms_rank": 2 * n_st, "schur_reduce": 0})
     err_cs, rel_cs, sprob = check_schur(seng, seng.cfg, dev)
+    mark("stereo")
 
-    rscene, _, reng, rfps, rlaunches = run_path("rgbd", dev)
+    rscene, rframes, reng, rfps, rlaunches = run_path("rgbd", dev)
     n_rg = len(reng.trajectory)
     say(f"rgbd path: {rfps:.3f} frames/s over frames {FPS_FIRST}-{n_rg - 1} on {smi}")
     check_path("rgbd", reng, rscene, rlaunches, with_scale=False, ate_gate=RGBD_ATE_GATE, min_kfs=3,
                min_launches={"fast_nms_rank": n_rg, "hamming_mutual": 1, "schur_reduce_stereo": 1},
                max_launches={"fast_nms_rank": n_rg})
+    mark("rgbd")
 
     # the batched paths: kernel A once per batch of images, one host pull per batch
     mb = run_batch_path("mono_batch", dev)
@@ -2307,6 +2738,7 @@ def main() -> int:
     sb = run_batch_path("stereo_batch", dev)
     check_batch_path("stereo_batch", sb, with_scale=False, ate_gate=STEREO_ATE_GATE)
     async_probe(dev, smi)
+    mark("batched")
 
     # loop closing: the seeded pose graph on the card against the CPU (it also warms the solvers), then the orbit
     # per frame and batched under the reference loop test's gates, and the first closure replayed step by step
@@ -2317,17 +2749,20 @@ def main() -> int:
         check_loop_path(name, loop_runs[name], smi)
     loop_probe("loop", loop_runs["loop"], dev, smi)
     loop_probe("loop_tum", loop_runs["loop_tum"], dev, smi)
+    mark("loop")
 
     # global BA: the dense branch (kernel C at C = 96) against the PCG and the CPU, the landmark-sharded solve
     # over two ranks against one (the KITTI00 capacity case comes after the kernels' timing)
     gba_dense = check_gba_dense(loop_runs["loop"], dev, smi)
     gba_sharded = check_gba_sharded(loop_runs, dev, smi)
+    mark("gba")
 
     # two runs of a path from one seed give the same bits (the loop path's global BA included); then the
     # engine's other modes on the loop engine, and block BA over two ranks against one
     check_determinism({"mono": eng, "loop": loop_runs["loop"]["eng"]}, dev, smi)
     check_modes(loop_runs["loop"], dev, smi)
     block_sharded = check_block_sharded(dev, smi)
+    mark("determinism_modes_block_sharded")
 
     # kernels A and B against their plain versions (after the paths: these launches do not count)
     err_a = check_fast([("mono", images[0], cfg), ("stereo", simages[0][0], seng.cfg)], dev)
@@ -2335,16 +2770,19 @@ def main() -> int:
     stereo_stack = np.stack([x[0] for x in sb["frames"][4 : 4 + BATCH]] + [x[1] for x in sb["frames"][4 : 4 + BATCH]])
     err_ab = check_fast_batch([("mono_batch", mono_stack, cfg), ("stereo_batch", stereo_stack, seng.cfg)], dev)
     err_b, err_m = check_hamming(dev)
+    mark("kernels_ab")
 
     times = kernel_times(images, cfg, prob, seng.cfg, sprob, dev, mono_stack, stereo_stack)
     times["schur_reduce"]["global_ba_C"] = check_schur_large_c(dev, smi)
     corridor = block_corridor(dev)
     err_cf, rel_cf, times["schur_reduce_frozen"] = check_schur_frozen(corridor, sprob, seng.cfg, dev, smi)
+    mark("kernel_times")
     # the KITTI00 capacity cases profile their own work: after the kernels' short sessions (ROADMAP D11: in one
     # run the session after its profiled windows came back without a device record)
     gba_capacity = check_gba_capacity(dev, smi)
     block_capacity = check_block_capacity(corridor, dev, smi)
     del corridor
+    mark("capacity")
 
     # the batched paths against their per-frame twins under the profiler, and relocalization on the mono_batch
     # engine. These windows (some 100,000 kernels each) come after the kernels' own short profiler
@@ -2352,6 +2790,15 @@ def main() -> int:
     profile_batch_path("mono_batch", mb, smi)
     reloc_probe(mb, dev, smi)
     profile_batch_path("stereo_batch", sb, smi)
+    mark("profiles_reloc")
+
+    # the kernels' self-check at the reference's shapes, then the CLI over the paths' frames written to disk. Last:
+    # in one run the first profiler session after the CLI phase came back without a device record (ROADMAP D11)
+    check_selfcheck(smi)
+    mark("selfcheck")
+    cli_runs = cli_phase({"mono": (scene, images), "rgbd": (rscene, rframes, reng.cfg), "stereo": (sscene, simages)},
+                         dev, smi)
+    mark("cli")
     errs = {"fast_nms_rank": err_a, "fast_nms_rank_batch": err_ab, "hamming_best2": err_b, "hamming_mutual": err_m,
             "schur_reduce": err_c, "schur_reduce_stereo": err_cs, "schur_reduce_frozen": err_cf}
     rels = {"schur_reduce": rel_c, "schur_reduce_stereo": rel_cs, "schur_reduce_frozen": rel_cf}
@@ -2359,7 +2806,8 @@ def main() -> int:
                "stereo_batch": sb["launches"], **{name: run["launches"] for name, run in loop_runs.items()},
                "gba_dense": gba_dense["launches"], "gba_sharded": gba_sharded["one_rank_launches"],
                "gba_capacity": gba_capacity["launches"], "block_sharded": block_sharded["one_rank_launches"],
-               "block_capacity": block_capacity["launches"]}
+               "block_capacity": block_capacity["launches"], **{n: r["launches"] for n, r in cli_runs.items()
+                                                                if n.startswith("cli_")}}
     # every launch is above these bounds: the shortest single kernel of the timing runs is the practical floor
     floor_ms = min(t["shortest_launch_ms"] for t in times.values())
     say(f"shortest single kernel launch seen while timing (the practical floor of any bound below it): "
@@ -2385,7 +2833,8 @@ def main() -> int:
             + "".join(f"; at C={c}: device {g['device_ms']} ms {json.dumps(g['stages_ms'])}, wrapper loop "
                       f"{g['wrapper_loop_ms']} ms, plain {g['plain_ms']} ms, bound {g['bound_ms']} ms by {g['bound_by']}"
                       for c, g in t.get("global_ba_C", {}).items()))
-    say(f"chip_smoke.py: {time.perf_counter() - t_script:.1f} s in all, the kernels' build included, on {smi}")
+    say(f"chip_smoke.py: {time.perf_counter() - t_script:.1f} s in all, the kernels' build included, on {smi}; "
+        f"by phase: {json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

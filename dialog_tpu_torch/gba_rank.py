@@ -18,7 +18,12 @@ suffix. A job with ``"kind": "block"`` runs
 ``optim.block_ba.block_bundle_adjustment`` instead, with the job's
 ``n_blocks``, ``rounds``, ``iters``, ``cams_pb`` and ``lms_pb`` (each rank
 solves its share of the active blocks), and writes its two drop counts
-beside. Every rank must be given the same jobs.
+beside. A job with ``"kind": "problem"`` loads a ``BAProblem`` saved as an
+``.npz`` of its fields (``"problem"``), takes this rank's landmark slice
+(``global_ba.shard_problem``) and times ``timed_solve`` on it over the
+group: ``seconds`` is then per LM iteration. Every rank must
+be given the same jobs. With ``device`` ``cuda`` rank r runs on card r
+modulo the cards there are.
 
 Several ranks may share one card with the gloo backend, which carries CUDA
 tensors (NCCL refuses two ranks on one device). ``launch`` starts the ranks
@@ -37,6 +42,7 @@ import torch
 
 BLOCK_ARGS = ("n_blocks", "rounds", "iters", "cams_pb", "lms_pb")   # a block job's arguments
 SCHUR_COUNTS = ("schur_reduce", "schur_reduce_stereo", "schur_reduce_frozen")
+WARM_ITERS, TIMED_ITERS = 2, 5   # a problem job's solves: one to warm up, one timed
 
 
 def config_to_json(cfg) -> dict:
@@ -92,6 +98,38 @@ def launch(spec: dict, job_path: str, timeout: float, cwd=None) -> list[list[dic
     return [[dict(np.load(rank_out(job["out"], r))) for job in spec["jobs"]] for r in range(spec["world"])]
 
 
+def timed_solve(prob, cfg, group=None) -> float:
+    """Seconds per LM iteration of the global BA's solve
+    (``global_ba.solve_global_problem``) of ``prob`` over ``group``:
+    ``TIMED_ITERS`` iterations after ``WARM_ITERS`` (the device synchronised
+    on the card)."""
+    from .optim.global_ba import solve_global_problem
+
+    sync = torch.cuda.synchronize if prob.R.device.type == "cuda" else (lambda: None)
+    solve_global_problem(prob, cfg, WARM_ITERS, group)
+    sync()
+    t0 = time.perf_counter()
+    solve_global_problem(prob, cfg, TIMED_ITERS, group)
+    sync()
+    return (time.perf_counter() - t0) / TIMED_ITERS
+
+
+def solve_problem(job: dict, cfg, device, rank: int, group) -> None:
+    """A ``"problem"`` job: this rank's slice of the saved problem, timed."""
+    import torch.distributed as dist
+
+    from .optim.global_ba import shard_problem
+    from .optim.local_ba import BAProblem
+
+    with np.load(job["problem"]) as z:
+        prob = BAProblem(**{k: torch.from_numpy(z[k]).to(device) for k in z.files})
+    part = shard_problem(prob, group) if group is not None else prob
+    dist.barrier(group)
+    seconds = timed_solve(part, cfg, group)
+    np.savez(rank_out(job["out"], rank), seconds=seconds, world=dist.get_world_size(group) if group else 1,
+             rows_held=part.lm_ids.shape[0])
+
+
 def main(argv=None) -> int:
     import torch.distributed as dist
 
@@ -106,11 +144,16 @@ def main(argv=None) -> int:
     with open(job_path) as f:
         spec = json.load(f)
     torch.set_num_threads(2)
+    if spec["device"] == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
     distributed.initialize(spec["address"], spec["world"], rank, backend=spec["backend"])
     group = distributed.default_group()
     try:
         for job in spec["jobs"]:
             cfg = config_from_json(job["config"])
+            if job.get("kind") == "problem":
+                solve_problem(job, cfg, spec["device"], rank, group)
+                continue
             m = load_map(cfg, job["map"], device=spec["device"])
             dist.barrier(group)
             common.reset_launch_counts()

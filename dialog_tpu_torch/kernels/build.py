@@ -11,6 +11,8 @@ carries a hash of the sources and flags, so an edited kernel rebuilds; a file
 lock keeps concurrent processes from building the same library twice. Every
 pointer and the stream cross the boundary as ``c_void_p``; ``SIGNATURES``
 holds the entry points' types, set once when a library is loaded.
+``build_library`` is the locked, hashed build itself; the host-side C++ of
+``dialog_tpu_torch/native`` builds through it too, with g++.
 """
 
 from __future__ import annotations
@@ -61,20 +63,16 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
-def _digest(src: Path) -> str:
+def build_library(name: str, src: Path, cmd: list[str], deps=()) -> Path:
+    """``BUILD_DIR/lib<name>_<hash>.so`` from ``src`` by ``cmd + ["-o", out,
+    src]``, compiled unless it exists; the hash covers ``src``, ``deps`` and
+    ``cmd``. A file lock keeps concurrent processes from building it twice;
+    a failed compile raises with the compiler's output."""
     h = hashlib.sha256()
-    for p in [src] + sorted(CSRC.glob("*.cuh")):
-        h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return h.hexdigest()[:16]
-
-
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, compiling it if needed."""
-    if name in _libs:
-        return _libs[name]
-    src = CSRC / f"{name}.cu"
-    out = BUILD_DIR / f"lib{name}_{_digest(src)}.so"
+    for p in [src, *deps]:
+        h.update(Path(p).read_bytes())
+    h.update(" ".join(cmd[1:]).encode())
+    out = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / f"{name}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
@@ -82,14 +80,22 @@ def load(name: str) -> ctypes.CDLL:
             build_seconds.setdefault(name, 0.0)
         else:
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            proc = subprocess.run([*cmd, "-o", str(tmp), str(src)], capture_output=True, text=True)
             build_seconds[name] = time.perf_counter() - t0
             build_log[name] = proc.stdout + proc.stderr
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {src.name}:\n{build_log[name]}")
+                raise RuntimeError(f"{cmd[0]} failed for {src.name}:\n{build_log[name]}")
             os.replace(tmp, out)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, compiling it if needed."""
+    if name in _libs:
+        return _libs[name]
+    out = build_library(name, CSRC / f"{name}.cu", [nvcc(), *NVCC_FLAGS, "-I", str(CSRC)],
+                        deps=sorted(CSRC.glob("*.cuh")))
     lib = ctypes.CDLL(str(out))
     for fn, (restype, argtypes) in SIGNATURES.get(name, {}).items():
         getattr(lib, fn).restype = restype

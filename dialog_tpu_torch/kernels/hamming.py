@@ -22,12 +22,28 @@ ROW_BITS = 23   # bits of the row index in a column's packed (distance, row) key
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:
-    """Population count of int32 bit patterns (SWAR on int64), as int32."""
-    x = x.to(torch.int64) & 0xFFFFFFFF
+    """Population count of int32 bit patterns (SWAR in int32), as int32.
+    Each mask drops the bits an arithmetic shift brings in, the products
+    wrap in two's complement, and the count (at most 32) is the top byte."""
+    x = x.to(torch.int32)
     x = x - ((x >> 1) & 0x55555555)
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
     x = (x + (x >> 4)) & 0x0F0F0F0F
-    return (((x * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
+    return (x * 0x01010101) >> 24
+
+
+def hamming_distance_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """i32[..., N, 8] x i32[..., M, 8] -> i32[..., N, M] pairwise Hamming
+    distance, as |a| + |b| - 2 a.b over the unpacked bits: a float matrix
+    product whose terms are 0 and 1, so every sum (at most 256) is exact and
+    equals the popcount of the XOR."""
+    shifts = torch.arange(32, dtype=torch.int32, device=desc_a.device)
+
+    def bits(x):
+        return ((x[..., None] >> shifts) & 1).flatten(-2).to(torch.float32)
+
+    a, b = bits(desc_a), bits(desc_b)
+    return (a.sum(-1)[..., :, None] + b.sum(-1)[..., None, :] - 2.0 * (a @ b.transpose(-1, -2))).to(torch.int32)
 
 
 def gate_d2(uv_a: torch.Tensor, uv_b: torch.Tensor) -> torch.Tensor:
@@ -43,7 +59,7 @@ def hamming_best2_plain(desc_a, desc_b, valid_a, valid_b, uv_a, uv_b, r2_rows,
     if M == 0:   # no column: no match, both distances at the sentinel
         none = torch.full((N,), MAX_DIST, dtype=torch.int32, device=desc_a.device)
         return torch.full_like(none, -1), none, none.clone()
-    d = popcount32(desc_a[:, None, :] ^ desc_b[None, :, :]).sum(-1, dtype=torch.int32)
+    d = hamming_distance_matrix(desc_a, desc_b)
     d2s = gate_d2(uv_a, uv_b)
     r2 = torch.where(r2_rows[:, None] >= 0, r2_rows[:, None], r2_cols[None, :])
     sp_ok = (r2 < 0) | (d2s <= r2)

@@ -16,15 +16,10 @@ import math
 import torch
 
 from . import ops
-from .kernels.hamming import gate_d2, mutual_match_fused, popcount32
+from .kernels.hamming import gate_d2, hamming_distance_matrix, mutual_match_fused
 
 HIST_BINS = 30       # rotation histogram (reference: HISTO_LENGTH)
 MAX_DIST = 257       # sentinel > any 256-bit Hamming distance
-
-
-def hamming_distance_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """i32[..., N, 8] x i32[..., M, 8] -> i32[..., N, M] pairwise Hamming distance."""
-    return popcount32(desc_a[..., :, None, :] ^ desc_b[..., None, :, :]).sum(-1, dtype=torch.int32)
 
 
 def rotation_consistency_mask(angle_a, angle_b, match_b, ok):

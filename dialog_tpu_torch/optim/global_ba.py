@@ -199,6 +199,18 @@ def fold_gba_result(m: MapState, kf_seq_snap, kf_valid_snap, lm_valid_snap, lm_f
     return m._replace(kfs=m.kfs._replace(R=R_out, t=t_out), lms=m.lms._replace(xyz=xyz_out))
 
 
+def solve_global_problem(part: BAProblem, cfg: EngineConfig, iters: int, group=None, cg_iters: int = 48,
+                         cg_tol: float = 1e-6):
+    """The global BA's solve of a problem or of this rank's landmark slice of
+    it: ``local_ba.solve_ba`` (kernel C at C = K on the card) up to
+    ``DENSE_SCHUR_MAX_CAMS`` cameras, the PCG above, with the mono robust
+    threshold. Returns (R, t, xyz of the slice, cost)."""
+    if part.cam_slots.shape[0] > DENSE_SCHUR_MAX_CAMS:
+        return solve_ba_pcg(part, cfg, iters=iters, chi2_th=cfg.chi2_mono, cg_iters=cg_iters, cg_tol=cg_tol,
+                            group=group)
+    return solve_ba(part, cfg, iters=iters, chi2_th=cfg.chi2_mono, group=group)
+
+
 def global_bundle_adjustment(m: MapState, cfg: EngineConfig, iters: int = 20, group=None,
                              stats: dict | None = None, cg_iters: int = 48, cg_tol: float = 1e-6) -> MapState:
     """Full-map BA, written back into the map (outlier observations
@@ -213,10 +225,6 @@ def global_bundle_adjustment(m: MapState, cfg: EngineConfig, iters: int = 20, gr
     if stats is not None:
         stats["gba_obs_dropped"] = stats.get("gba_obs_dropped", 0) + int(n_dropped)
     part = prob if group is None else shard_problem(prob, group)
-    if prob.cam_slots.shape[0] > DENSE_SCHUR_MAX_CAMS:
-        R, t, xyz, _ = solve_ba_pcg(part, cfg, iters=iters, chi2_th=cfg.chi2_mono, cg_iters=cg_iters, cg_tol=cg_tol,
-                                    group=group)
-    else:
-        R, t, xyz, _ = solve_ba(part, cfg, iters=iters, chi2_th=cfg.chi2_mono, group=group)
+    R, t, xyz, _ = solve_global_problem(part, cfg, iters, group, cg_iters, cg_tol)
     xyz = gather_landmarks(xyz, prob.lm_ids.shape[0], group)
     return write_back(m, prob, R, t, xyz, cfg, chi2_th=cfg.chi2_mono)

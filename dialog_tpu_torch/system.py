@@ -120,9 +120,10 @@ class Engine:
         self.last_kf_tracked = 0
         self.kf_interval = cfg.max_frames_between_kf
         # capacity events: landmarks the free list could not take, keyframes
-        # with no free slot, global-BA observations cut at max_obs_per_lm
-        # (RunLogger's gba_obs_dropped event waits for the instrumentation)
+        # with no free slot, global-BA observations cut at max_obs_per_lm;
+        # each also goes to ``logger`` (an instrument.RunLogger) when one is set
         self.stats = {"lm_dropped": 0, "kf_slot_full": 0, "gba_obs_dropped": 0, "gba_runs": 0}
+        self.logger = None
         self._init_frame: Optional[FrameArrays] = None
         self._init_ts = 0.0
         self._init_fid = 0
@@ -679,7 +680,10 @@ class Engine:
     def _observe_kf_meta(self, meta: MapMeta) -> None:
         """Fold a device keyframe snapshot into the host slot view and
         re-anchor trajectory records whose reference keyframe was culled."""
-        self.stats["lm_dropped"] = max(self.stats["lm_dropped"], meta.lm_dropped)
+        if meta.lm_dropped > self.stats["lm_dropped"]:
+            self.stats["lm_dropped"] = meta.lm_dropped
+            if self.logger is not None:
+                self.logger.log_event("lm_freelist_full", dropped=meta.lm_dropped)
         for s, expected in list(self._recent_kf_allocs.items()):
             if meta.seq[s] >= expected:
                 del self._recent_kf_allocs[s]
@@ -997,6 +1001,8 @@ class Engine:
         if not self._has_free_kf_slot():
             # at capacity: a standalone cull pass keeps freeing slots
             self.stats["kf_slot_full"] += 1
+            if self.logger is not None:
+                self.logger.log_event("kf_slots_full", count=self.stats["kf_slot_full"])
             self.m = mapping.cull_keyframes(self.m, self.ref_kf, self.cfg)
             if not self._pending_b and not self._pending:
                 # no pull in flight to learn the freed slot from
@@ -1096,7 +1102,10 @@ class Engine:
         count of cut observations back to the host once."""
         prob, n_dropped = build_global_problem(self.m, self.cfg)
         self.stats["gba_runs"] += 1
-        self.stats["gba_obs_dropped"] += int(n_dropped)
+        n_dropped = int(n_dropped)
+        self.stats["gba_obs_dropped"] += n_dropped
+        if self.logger is not None and n_dropped:
+            self.logger.log_event("gba_obs_dropped", n=n_dropped)
         n_lms = prob.lm_ids.shape[0]
         if self.group is not None:
             prob = shard_problem(prob, self.group)

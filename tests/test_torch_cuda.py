@@ -55,6 +55,11 @@ solve on a small stereo corridor (t within 2e-3, R within 5e-4), its
 launches, and a repeat bit for bit. The
 fixed-order segment sum and the global BA and pose graph built on it repeat
 bit for bit (ROADMAP D15).
+
+The port's periphery on the card machine (which has no cv2): the kernels'
+self-check (``kernels.selfcheck``, every case), and PNG files written by
+``datasets.png.write_png`` decoding back to their arrays bit for bit and
+feeding the frontend on the card as the same array would.
 """
 
 import numpy as np
@@ -912,3 +917,47 @@ def test_two_gloo_ranks_on_the_card_match_one(cuda, tmp_path, branch):
     if branch == "dense":
         assert all(int(g["schur_launches"]) >= 4 for g in got)
 
+
+def test_selfcheck_passes_on_the_card(cuda):
+    from dialog_tpu_torch.kernels import selfcheck
+
+    res = selfcheck.run()
+    assert all(ok for ok, _ in res.values()), res
+    assert selfcheck.main() == 0
+
+
+def test_png_round_trip_on_the_card_machine(cuda, tmp_path):
+    from dialog_tpu_torch.datasets import png
+
+    rng = np.random.default_rng(4)
+    gray = rng.integers(0, 256, (480, 640), dtype=np.uint8)
+    rgb = np.stack([gray, gray, gray], -1)
+    depth = rng.integers(0, 65536, (480, 640), dtype=np.uint16)
+    for name, a, read in (("g", gray, png.read_gray), ("rgb", rgb, png.read_gray), ("d", depth, png.read_unchanged)):
+        path = str(tmp_path / f"{name}.png")
+        png.write_png(path, a)
+        got = read(path)
+        assert got.dtype == (np.uint16 if name == "d" else np.uint8)
+        np.testing.assert_array_equal(got, gray if name == "rgb" else a)
+    img = torch.from_numpy(png.read_gray(str(tmp_path / "rgb.png")).astype(np.float32)).to(cuda)
+    got = fe.extract_features(img, CFG)
+    want = fe.extract_features(torch.from_numpy(gray.astype(np.float32)).to(cuda), CFG)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+
+@pytest.mark.parametrize("shape", [(700, 900), (2048, 2048), (5, 300, 400)])
+def test_hamming_distance_matrix_on_the_card_equals_xor_popcount(cuda, shape):
+    """``matching.hamming_distance_matrix`` on the card against the
+    reference's definition, the popcount of the XOR (numpy's bit unpacking)."""
+    from dialog_tpu_torch import matching
+
+    rng = np.random.default_rng(12)
+    *lead, n, m = shape
+    a = rng.integers(0, 2**32, (*lead, n, 8), dtype=np.uint32)
+    b = rng.integers(0, 2**32, (*lead, m, 8), dtype=np.uint32)
+    a[..., 0, :], b[..., 0, :] = 0xFFFFFFFF, 0
+    want = np.unpackbits((a[..., :, None, :] ^ b[..., None, :, :]).view(np.uint8), axis=-1).sum(-1)
+    got = matching.hamming_distance_matrix(torch.from_numpy(a.view(np.int32)).to(cuda),
+                                           torch.from_numpy(b.view(np.int32)).to(cuda))
+    np.testing.assert_array_equal(got.cpu().numpy(), want)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from dialog_tpu import matching as jm
@@ -136,6 +137,23 @@ def test_match_projected_fused_equals_reference_dense(band):
     assert int((np.asarray(want[0]) >= 0).sum()) > 50
     for w, g in zip(want, got):
         np.testing.assert_array_equal(np.asarray(w), g.numpy())
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (200, 220), (3, 40, 50)], ids=["one", "flat", "leading-dims"])
+def test_hamming_distance_matrix_equals_reference(shape):
+    """The one distance matrix (a product of unpacked bits) against the
+    reference's popcount of the XOR, leading dimensions included, with the
+    all-ones and all-zeros descriptors (distance 256) in every case."""
+    rng = np.random.default_rng(11)
+    *lead, n, m = shape
+    a = rng.integers(0, 2**32, (*lead, n, 8), dtype=np.uint32)
+    b = rng.integers(0, 2**32, (*lead, m, 8), dtype=np.uint32)
+    a[..., 0, :], b[..., 0, :] = 0xFFFFFFFF, 0
+    ref = jax.vmap(jm.hamming_distance_matrix) if lead else jm.hamming_distance_matrix
+    want = ref(jnp.asarray(a), jnp.asarray(b))
+    got = tm.hamming_distance_matrix(_t(a), _t(b))
+    assert got.dtype == torch.int32 and int(got[..., 0, 0].min()) == 256
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
 
 
 def test_dense_policies():

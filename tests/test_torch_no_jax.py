@@ -1,13 +1,16 @@
 """The port and ``chip_smoke.py`` run where JAX is not installed.
 
-A child interpreter in which ``import jax`` and ``import dialog_tpu`` fail
-imports ``dialog_tpu_torch``, every one of its submodules and
-``chip_smoke``, then extracts features from a 160x120 image with the port's
-plain frontend (one image and a batch of two), trains and queries a small
-vocabulary, solves a PnP problem, a Sim3 RANSAC problem, a seeded Sim3
-pose graph and a seeded BA problem by the Schur PCG, folds the result
-into a map, and runs a block BA on a small corridor map. A static check finds no JAX import and no reference to the
-JAX package in the port's sources or in ``chip_smoke.py``.
+A child interpreter in which ``import jax``, ``import dialog_tpu``,
+``import cv2``, ``import PIL`` and ``import matplotlib`` fail imports
+``dialog_tpu_torch``, every one of its submodules and ``chip_smoke``, then
+extracts features from a 160x120 image with the port's plain frontend (one
+image and a batch of two), trains and queries a small vocabulary, solves a
+PnP problem, a Sim3 RANSAC problem, a seeded Sim3 pose graph and a seeded BA
+problem by the Schur PCG, folds the result into a map, runs a block BA on a
+small corridor map, decodes a PNG that ``write_png`` wrote and runs
+``cli.main(["run-synth", "--frames", "12", "--device", "cpu"])``. A static
+check finds no import of those five and no reference to the JAX package in
+the port's sources or in ``chip_smoke.py``.
 """
 
 import pathlib
@@ -23,8 +26,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 CHILD = r"""
 import importlib, pkgutil, sys
-sys.modules["jax"] = None
-sys.modules["dialog_tpu"] = None
+for blocked in ("jax", "dialog_tpu", "cv2", "PIL", "matplotlib"):
+    sys.modules[blocked] = None
 import numpy as np
 import torch
 torch.set_num_threads(2)
@@ -84,7 +87,18 @@ st = {}
 cb = block_ba.block_bundle_adjustment(cm, kc, n_blocks=2, rounds=1, iters=2, cams_pb=12, lms_pb=64, stats=st)
 assert bool(torch.isfinite(cb.kfs.t).all()) and st["block_ba_kf_dropped"] == 0
 assert "dialog_tpu_torch.optim.block_ba" in names
-assert "jax" not in [m for m in sys.modules if sys.modules[m] is not None]
+import os, tempfile
+from dialog_tpu_torch.datasets import png
+with tempfile.TemporaryDirectory() as tmp:
+    a = (img[:37, :53] * 0.9).astype(np.uint8)
+    png.write_png(os.path.join(tmp, "x.png"), np.stack([a, a, a], -1))
+    assert np.array_equal(png.read_gray(os.path.join(tmp, "x.png")), a)
+from dialog_tpu_torch import cli
+cli.main(["run-synth", "--frames", "12", "--device", "cpu"])
+assert {"dialog_tpu_torch.cli", "dialog_tpu_torch.native", "dialog_tpu_torch.datasets.png",
+        "dialog_tpu_torch.eval.render", "dialog_tpu_torch.kernels.selfcheck"} <= set(names)
+loaded = [m for m in sys.modules if sys.modules[m] is not None]
+assert not [m for m in loaded if m.split(".")[0] in ("jax", "cv2", "PIL", "matplotlib")]
 print(len(names), int(fr.valid.sum()), tuple(fr.desc.shape))
 """
 
@@ -92,15 +106,18 @@ print(len(names), int(fr.valid.sum()), tuple(fr.desc.shape))
 def test_port_imports_and_runs_without_jax():
     out = subprocess.run([sys.executable, "-c", CHILD], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n_modules, n_valid, desc_shape = out.stdout.split(maxsplit=2)
+    assert "tracked" in out.stdout   # the CLI ran
+    n_modules, n_valid, desc_shape = out.stdout.splitlines()[-1].split(maxsplit=2)
     assert int(n_modules) >= 25
     assert int(n_valid) > 50
     assert desc_shape.strip() == "(160, 8)"
 
 
-@pytest.mark.parametrize("pattern", ["import jax", "from jax", "dialog_tpu."])
+@pytest.mark.parametrize("pattern", ["import jax", "from jax", "dialog_tpu.", "import cv2", "import PIL", "from PIL",
+                                     "import matplotlib", "from matplotlib"])
 def test_no_jax_in_port_sources(pattern):
     files = sorted((ROOT / "dialog_tpu_torch").rglob("*.py")) + sorted((ROOT / "dialog_tpu_torch").rglob("*.cu"))
+    files += sorted((ROOT / "dialog_tpu_torch").rglob("*.cpp"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
     hits = [str(p.relative_to(ROOT)) for p in files if pattern in p.read_text()]
