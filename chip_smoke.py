@@ -128,6 +128,20 @@ Needs one CUDA card and nvcc; exits non-zero without them. It
    as written and Paeth-filtered), and the share of the loop's wall time
    spent waiting for decoded frames.
 
+Right after the build, the ``bench`` phase runs the bench as users run it:
+``python3 -m dialog_tpu_torch.cli bench`` in a child process, all three of
+bench.py's workloads (``tum_mono_kf10``, ``tum_mono_kf30``, ``kitti_stereo``),
+its output streamed into this log and parsed. Gates: the three
+``tracking_fps_*`` lines in order, each followed by the primary line, the last
+one ``tracking_fps_tum_class_mono`` with all three workloads, bench.py's keys,
+every value finite and above 0, ``vs_baseline`` the value over 30 or 15 as
+rounded; on each workload's ``#`` line: OK at the end, an OK share above 0.9
+outside the blanked frames, at least 4 keyframes, a recovery from the blanked
+frames (mono: by relocalization), kernel A once per batched frontend call,
+``hamming_mutual`` and the workload's kernel C variant launched, and an ATE
+below twice the JAX engine's on the same frames under the same schedule
+(``tools/reference_ate.py bench_*``). A non-zero exit fails the script.
+
 Each path runs on a fresh engine, with every kernel's launch count reset just
 before it and read just after (``hamming_best2``, the standalone form of
 kernel B, is on no path since the mutual mode: its own check launches it). It
@@ -255,6 +269,16 @@ EUROC_SCALE = 0.3       # the stereo sweep's depths 4-12 -> 1.2-3.6 m, inside th
 CLI_SYNTH_FRAMES = 120  # run-synth's orbit: a lap in CLI_SYNTH_FRAMES frames, 3 degrees a frame (the engine never
                         # initializes on a lap of 100 frames, or of run-synth's default 60)
 CLI_SYNTH_ATE_SPAN = LOOP_ATE_SPAN
+
+# the bench phase: bench.py's workloads -> (their name in launches_by_path, baseline frames/s, kernel C's variant)
+BENCH_WORKLOADS = {"tum_mono_kf10": ("bench_kf10", 30.0, "schur_reduce"),
+                   "tum_mono_kf30": ("bench_kf30", 30.0, "schur_reduce"),
+                   "kitti_stereo": ("bench_stereo", 15.0, "schur_reduce_stereo")}
+# the JAX engine on the same frames under the same schedule (tools/reference_ate.py bench_kf10 | bench_kf30 |
+# bench_stereo, CPU), m: similarity-aligned for mono, metric for stereo; the port's gate is twice it (PERF.md)
+BENCH_REFERENCE_ATE = {"tum_mono_kf10": 0.6588, "tum_mono_kf30": 0.8539, "kitti_stereo": 0.1699}
+BENCH_OK_SHARE = 0.9
+BENCH_TIMEOUT_S = 600
 
 KERNELS = {
     "fast_nms_rank": ("dialog_tpu_torch/csrc/fast.cu", "dialog_tpu/kernels/fast.py:118"),
@@ -2573,6 +2597,91 @@ def schur_bound(args, kw, out) -> dict:
     return dict(bound(nbytes(*ins, *out), ops), live_observations=int(ok.sum()), optimized_observations=int(opt.sum()))
 
 
+def bench_phase(smi) -> dict:
+    """``python3 -m dialog_tpu_torch.cli bench`` in a child process, as users
+    run it: its output streamed into this log, then held to its gates
+    (``check_bench``). Returns the three workloads' frames/s, their ``#``
+    lines, their launches by path and the child's wall seconds."""
+    cmd = [sys.executable, "-m", "dialog_tpu_torch.cli", "bench"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            say(f"  bench: {lines[-1]}")
+        rc = proc.wait(timeout=BENCH_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"bench: {' '.join(cmd[1:])} exited with {rc}")
+    out = check_bench(lines)
+    out["wall_s"] = wall
+    say("bench: " + ", ".join(f"{n} {out['fps'][n]} frames/s ({out['vs_baseline'][n]} x the baseline)"
+                              for n in BENCH_WORKLOADS) + f"; the child's wall {wall:.1f} s; on {smi}")
+    return out
+
+
+def check_bench(lines) -> dict:
+    """The bench's output held to bench.py's contract and each workload's
+    ``#`` line to the bench gates (module docstring)."""
+    metrics = [json.loads(x) for x in lines if x.startswith("{")]
+    notes = {}
+    for x in lines:
+        if x.startswith("# "):
+            name, _, body = x[2:].partition(": ")
+            notes[name] = json.loads(body)
+    names = list(BENCH_WORKLOADS)
+    want = [m for n in names for m in (f"tracking_fps_{n}", "tracking_fps_tum_class_mono")]
+    if [m.get("metric") for m in metrics] != want:
+        fail(f"bench: metric lines {[m.get('metric') for m in metrics]}, not {want}")
+    for k, n in enumerate(names):
+        line, primary = metrics[2 * k], metrics[2 * k + 1]
+        base = BENCH_WORKLOADS[n][1]
+        if set(line) != {"metric", "value", "unit", "vs_baseline"} or line["unit"] != "frames/s":
+            fail(f"bench: {n}'s line {line} does not have bench.py's keys")
+        v = line["value"]
+        if not (isinstance(v, float) and np.isfinite(v) and v > 0):
+            fail(f"bench: {n} reads {v} frames/s")
+        # value and vs_baseline are each rounded from the same frames/s (to 0.01 and 0.001)
+        if not abs(line["vs_baseline"] - v / base) <= 0.0005 + 0.005 / base + 1e-9:
+            fail(f"bench: {n}'s vs_baseline {line['vs_baseline']} is not {v} / {base} as rounded")
+        want_primary = {"metric": "tracking_fps_tum_class_mono", "value": metrics[0]["value"], "unit": "frames/s",
+                        "vs_baseline": metrics[0]["vs_baseline"],
+                        "workloads": {names[j]: metrics[2 * j]["value"] for j in range(k + 1)}}
+        if primary != want_primary:
+            fail(f"bench: the primary line after {n} reads {primary}, not {want_primary}")
+    for n, (path, base, c_kernel) in BENCH_WORKLOADS.items():
+        if n not in notes:
+            fail(f"bench: no '#' line for {n}")
+        s, launches = notes[n], notes[n]["launches"]
+        ref = BENCH_REFERENCE_ATE[n]
+        if s["state"] != "OK":
+            fail(f"bench {n}: state at the end is {s['state']}")
+        if not s["ok_share"] > BENCH_OK_SHARE:
+            fail(f"bench {n}: OK share {s['ok_share']} <= {BENCH_OK_SHARE} outside the blanked frames")
+        if s["keyframes"] < 4:
+            fail(f"bench {n}: {s['keyframes']} keyframes")
+        recovered = s["relocalizations"] if c_kernel == "schur_reduce" else s["recovered"]
+        if recovered < 1:
+            fail(f"bench {n}: no {'relocalization' if c_kernel == 'schur_reduce' else 'recovery'} after the "
+                 f"blanked frames {s['blanked']}")
+        if launches["fast_nms_rank_batch"] != s["frontend_batches"]:
+            fail(f"bench {n}: fast_nms_rank_batch launched {launches['fast_nms_rank_batch']} times for "
+                 f"{s['frontend_batches']} batched frontend calls")
+        for k in ("hamming_mutual", c_kernel):
+            if launches[k] < 1:
+                fail(f"bench {n}: {k} was not launched")
+        if not (isinstance(s["ate_m"], float) and s["ate_m"] < 2 * ref):
+            fail(f"bench {n}: ATE {s['ate_m']} m not below twice the JAX engine's {ref} m on the same frames")
+    return dict(fps={n: metrics[2 * k]["value"] for k, n in enumerate(names)},
+                vs_baseline={n: metrics[2 * k]["vs_baseline"] for k, n in enumerate(names)}, notes=notes,
+                launches={BENCH_WORKLOADS[n][0]: notes[n]["launches"] for n in names})
+
+
 def entry(name, fn, plain, limit, reps=20, **extra) -> dict:
     """One kernel's readings at one shape: the device's own time per call
     (``device_ms``), the pace of back-to-back wrapper calls and of the plain
@@ -2703,6 +2812,10 @@ def main() -> int:
                 say(f"ptxas {name}: {line.strip()}")
     mark("build")
 
+    # the bench as users run it, in a child process: bench.py's three workloads
+    bench = bench_phase(smi)
+    mark("bench")
+
     # mono path: kernel A once per image (all pyramid levels in one launch),
     # kernel B once per mutual match
     scene, images, eng, fps, launches = run_path("mono", dev)
@@ -2807,7 +2920,7 @@ def main() -> int:
                "gba_dense": gba_dense["launches"], "gba_sharded": gba_sharded["one_rank_launches"],
                "gba_capacity": gba_capacity["launches"], "block_sharded": block_sharded["one_rank_launches"],
                "block_capacity": block_capacity["launches"], **{n: r["launches"] for n, r in cli_runs.items()
-                                                                if n.startswith("cli_")}}
+                                                                if n.startswith("cli_")}, **bench["launches"]}
     # every launch is above these bounds: the shortest single kernel of the timing runs is the practical floor
     floor_ms = min(t["shortest_launch_ms"] for t in times.values())
     say(f"shortest single kernel launch seen while timing (the practical floor of any bound below it): "

@@ -12,6 +12,7 @@ Usage::
     dialog-tpu-torch run-kitti <seq_dir> [--settings KITTI00-02.yaml] [--mono] [--gt poses.txt] [--out traj.txt]
     dialog-tpu-torch run-euroc <seq_dir> [--settings EuRoC.yaml] [--mono] [--out traj.txt]
     dialog-tpu-torch run-synth [--frames N] [--trajectory sweep|loop]
+    dialog-tpu-torch bench [--only kf10|kf30|stereo] [--device cuda|cpu]
 
 Every subcommand takes ``--frames``, ``--out``, ``--render`` (PNG or SVG)
 and ``--device`` (``cuda``, the default, or ``cpu``). Images are decoded
@@ -24,8 +25,10 @@ OK only (ROADMAP R3: the reference also scores pre-initialization and LOST
 placeholders); ``run-tum`` and ``run-euroc`` pair each OK frame with the
 ground-truth row nearest its timestamp, and the render aligns over those
 pairs (R8: the reference pairs the k-th OK frame with the k-th row); an ATE
-that is not finite prints as undefined (R2). The
-reference's ``bench`` subcommand is not here (ROADMAP 17d).
+that is not finite prints as undefined (R2). ``bench`` parses its own flags
+and hands them to ``bench.main`` (R9: the reference's ``bench`` subcommand
+hands its ``main`` the process's arguments, subcommand included, and
+declares no ``--only``, so it exits with a usage error).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import time
 
 import numpy as np
 
+from . import bench
 from .config import EngineConfig, Sensor, load_yaml
 
 # the reference CLI's settings when no --settings file is given
@@ -274,6 +278,10 @@ def run_synth(args) -> None:
         print(f"map render -> {args.render}")
 
 
+def run_bench(args) -> None:
+    bench.main((["--only", args.only] if args.only else []) + ["--device", args.device])
+
+
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="dialog-tpu-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -314,6 +322,10 @@ def parser() -> argparse.ArgumentParser:
     s.add_argument("--trajectory", default="sweep", choices=["sweep", "loop"])
     common(s, settings_file=False)
     s.set_defaults(fn=run_synth)
+
+    b = sub.add_parser("bench", help="frames/s of the tracking pipeline on bench.py's three workloads")
+    bench.add_arguments(b)
+    b.set_defaults(fn=run_bench)
     return p
 
 

@@ -121,8 +121,10 @@ class Engine:
         self.kf_interval = cfg.max_frames_between_kf
         # capacity events: landmarks the free list could not take, keyframes
         # with no free slot, global-BA observations cut at max_obs_per_lm;
-        # each also goes to ``logger`` (an instrument.RunLogger) when one is set
-        self.stats = {"lm_dropped": 0, "kf_slot_full": 0, "gba_obs_dropped": 0, "gba_runs": 0}
+        # each also goes to ``logger`` (an instrument.RunLogger) when one is set.
+        # Also the global BA runs started and the relocalizations that succeeded.
+        self.stats = {"lm_dropped": 0, "kf_slot_full": 0, "gba_obs_dropped": 0, "gba_runs": 0,
+                      "relocalizations": 0}
         self.logger = None
         self._init_frame: Optional[FrameArrays] = None
         self._init_ts = 0.0
@@ -990,6 +992,7 @@ class Engine:
             self._last_frame = frame
             self._last_lm_ids = torch.where(res.inlier, lm_ids, INVALID_ID)
             self._vel = None
+            self.stats["relocalizations"] += 1
             return self._record(ts, res.R, res.t, n_inl, ref_kf=cand)
         return None
 

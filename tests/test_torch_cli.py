@@ -226,7 +226,38 @@ def test_r2_a_non_finite_ate_prints_as_undefined():
 
 
 def test_the_device_is_the_card_unless_asked():
-    for argv in (["run-synth"], ["run-tum", "x"], ["run-kitti", "x"], ["run-euroc", "x"]):
+    for argv in (["run-synth"], ["run-tum", "x"], ["run-kitti", "x"], ["run-euroc", "x"], ["bench"]):
         assert cli.parser().parse_args(argv).device == "cuda"
+
+
+@pytest.mark.parametrize("argv, want", [
+    (["bench"], ["--device", "cuda"]),
+    (["bench", "--only", "kf10"], ["--only", "kf10", "--device", "cuda"]),
+    (["bench", "--only", "stereo", "--device", "cpu"], ["--only", "stereo", "--device", "cpu"]),
+])
+def test_r9_bench_parses_its_own_flags(monkeypatch, argv, want):
+    """R9: the subcommand hands bench.main its own flags, not the process's arguments."""
+    from dialog_tpu_torch import bench
+
+    calls = []
+    monkeypatch.setattr(bench, "main", lambda a=None: calls.append(a))
+    cli.main(argv)
+    assert calls == [want]
     with pytest.raises(SystemExit):
-        cli.parser().parse_args(["bench"])   # the bench subcommand waits for the GPU bench (ROADMAP 17d)
+        cli.main(["bench", "--only", "kf20"])
+
+
+@pytest.mark.parametrize("argv, error", [
+    (["bench", "--only", "kf10"], "dialog-tpu: error: unrecognized arguments: --only kf10"),
+    (["bench"], "error: unrecognized arguments: bench"),
+])
+def test_r9_the_reference_bench_subcommand_exits_with_a_usage_error(argv, error):
+    """R9, the reference's side: its subparser declares no --only, and its bench.main parses sys.argv, which still
+    holds the subcommand. Run in a child: importing bench.py turns on JAX's persistent compilation cache."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-m", "dialog_tpu.cli", *argv], cwd=root, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 2 and error in out.stderr, out.stderr

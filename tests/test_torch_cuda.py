@@ -961,3 +961,31 @@ def test_hamming_distance_matrix_on_the_card_equals_xor_popcount(cuda, shape):
     got = matching.hamming_distance_matrix(torch.from_numpy(a.view(np.int32)).to(cuda),
                                            torch.from_numpy(b.view(np.int32)).to(cuda))
     np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_read_profile_reads_what_the_event_list_reads(cuda):
+    """``profile_main_path.read_profile`` (the raw event records) against ``prof.events()`` and
+    ``key_averages()`` on a window of mixed kernels, copies, syncs and ``.item()`` reads: the same kernels, busy
+    time (within the microsecond rounding of the event list) and the sync rows' counts (the event list folds an
+    operator nested in one of the same name, ``aten::sum`` in ``aten::sum``, into one: the raw counts do not)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dialog_tpu_torch import profile_main_path as pm
+
+    x = torch.randn(256, 256, device=cuda)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            y = (x @ x).relu().sum()
+            y.item()
+            x.cpu()
+            torch.cuda.synchronize()
+    got = pm.read_profile(prof)
+    events = prof.events()
+    kernels = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith(("Memcpy", "Memset")))
+    assert got["device_kernels"] == kernels >= 60
+    assert abs(got["device_busy_s"] - pm._busy_seconds(events)) <= 2e-6 * kernels
+    rows = {r.key: r.count for r in prof.key_averages()}
+    host = {k: n for k, (n, _) in got["host"].items()}
+    assert {k: rows[k] for k in pm.SYNC_ROWS if k in rows} == {k: host[k] for k in pm.SYNC_ROWS if k in host}
+    assert host["aten::item"] == 20 and host["cudaStreamSynchronize"] >= 20

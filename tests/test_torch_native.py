@@ -68,3 +68,21 @@ def test_failed_build_raises_with_the_compilers_output(tmp_path, monkeypatch):
     monkeypatch.setitem(native.SIGNATURES, "broken", {})
     with pytest.raises(RuntimeError, match="broken.cpp"):
         native.load("broken")
+
+
+@pytest.mark.parametrize("folder", ["csrc", "native"])
+def test_package_data_holds_every_source_the_build_compiles(folder):
+    """An installed wheel builds the kernels and the native helpers from its own package data: every non-Python
+    file under csrc/ and native/ (what nvcc and g++ compile, and the headers they include) matches a glob."""
+    import fnmatch
+    import pathlib
+    import tomllib
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    globs = tomllib.loads((root / "pyproject.toml").read_text())["tool"]["setuptools"]["package-data"]
+    pkg = root / "dialog_tpu_torch"
+    sources = [p.relative_to(pkg).as_posix() for p in sorted((pkg / folder).iterdir())
+               if p.is_file() and p.suffix != ".py"]
+    assert sources
+    missing = [f for f in sources if not any(fnmatch.fnmatch(f, g) for g in globs["dialog_tpu_torch"])]
+    assert not missing, missing

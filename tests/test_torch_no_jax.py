@@ -8,7 +8,8 @@ image and a batch of two), trains and queries a small vocabulary, solves a
 PnP problem, a Sim3 RANSAC problem, a seeded Sim3 pose graph and a seeded BA
 problem by the Schur PCG, folds the result into a map, runs a block BA on a
 small corridor map, decodes a PNG that ``write_png`` wrote and runs
-``cli.main(["run-synth", "--frames", "12", "--device", "cpu"])``. A static
+``cli.main(["run-synth", "--frames", "12", "--device", "cpu"])`` and the
+CLI's ``bench`` subcommand (its workloads replaced by fixed frames/s). A static
 check finds no import of those five and no reference to the JAX package in
 the port's sources or in ``chip_smoke.py``.
 """
@@ -97,6 +98,12 @@ from dialog_tpu_torch import cli
 cli.main(["run-synth", "--frames", "12", "--device", "cpu"])
 assert {"dialog_tpu_torch.cli", "dialog_tpu_torch.native", "dialog_tpu_torch.datasets.png",
         "dialog_tpu_torch.eval.render", "dialog_tpu_torch.kernels.selfcheck"} <= set(names)
+from dialog_tpu_torch import bench
+bench.mono_images = lambda cfg, device: (None, [])
+bench.run_mono = lambda kf, *a, **k: {10: 9.0, 30: 12.0}[kf]
+bench.run_stereo = lambda *a, **k: 6.0
+cli.main(["bench", "--device", "cpu"])
+assert "dialog_tpu_torch.bench" in names
 loaded = [m for m in sys.modules if sys.modules[m] is not None]
 assert not [m for m in loaded if m.split(".")[0] in ("jax", "cv2", "PIL", "matplotlib")]
 print(len(names), int(fr.valid.sum()), tuple(fr.desc.shape))
@@ -107,6 +114,7 @@ def test_port_imports_and_runs_without_jax():
     out = subprocess.run([sys.executable, "-c", CHILD], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "tracked" in out.stdout   # the CLI ran
+    assert '"metric": "tracking_fps_tum_class_mono", "value": 9.0' in out.stdout   # and its bench subcommand
     n_modules, n_valid, desc_shape = out.stdout.splitlines()[-1].split(maxsplit=2)
     assert int(n_modules) >= 25
     assert int(n_valid) > 50

@@ -4,6 +4,7 @@
     JAX_PLATFORMS=cpu python tools/reference_ate.py rgbd
     JAX_PLATFORMS=cpu python tools/reference_ate.py loop
     JAX_PLATFORMS=cpu python tools/reference_ate.py mono_batch
+    JAX_PLATFORMS=cpu python tools/reference_ate.py bench_kf10|bench_kf30|bench_stereo
 
 Runs ``dialog_tpu``'s engine on the same frames that ``chip_smoke.py`` feeds
 the port (``dialog_tpu_torch.profile_main_path``):
@@ -36,6 +37,16 @@ the port (``dialog_tpu_torch.profile_main_path``):
   half of the batch at frame 48 blanked, ``flush``). Prints the
   similarity-aligned ATE of both (ROADMAP D10).
 
+* ``bench_kf10`` / ``bench_kf30`` / ``bench_stereo``: the reference's
+  ``bench.py`` workloads (``tum_mono_kf10``, ``tum_mono_kf30``,
+  ``kitti_stereo``), the engine driven exactly as ``bench.py`` drives it
+  (``bench_schedule``, a copy of its loop, with its configurations, scenes
+  and loop detection on), on the CPU: the OK share after the first OK frame
+  outside the blanked frames, keyframes, relocalizations, recoveries from
+  LOST, loop closures, the ATE (similarity-aligned for mono, metric for
+  stereo) and the timed window's first frame and count. ``chip_smoke.py``
+  takes its bench ATE bounds from these runs (PERF.md).
+
 Each prints one line per frame (or batch) and a JSON object as its last line.
 """
 
@@ -60,13 +71,15 @@ def reference_config(tcfg, vocab: bool = False) -> JConfig:
     return cfg if vocab else cfg.replace(vocab_min_kfs=1000)
 
 
-def _ate(eng, scene, with_scale: bool):
-    """(ATE over the OK frames, span of their ground-truth centres, OK share after the first OK frame)."""
+def _ate(eng, scene, with_scale: bool, fps: float | None = None):
+    """(ATE over the OK frames, span of their ground-truth centres, OK share after the first OK frame). Each record
+    is scored against the scene's frame ``frame_id``, or, given ``fps``, frame timestamp x fps (bench.py's schedule
+    skips frames, so its records' frame ids fall behind the frames they tracked)."""
     states = [r.state for r in eng.trajectory]
     ok = np.array([s == "OK" for s in states])
     if ok.sum() < 3:
         return None, None, 0.0
-    fids = np.array([r.frame_id for r in eng.trajectory])
+    fids = np.array([r.frame_id if fps is None else round(r.timestamp * fps) for r in eng.trajectory])
     est = eng.positions[ok]
     gt = np.stack([-scene.R[i].T @ scene.t[i] for i in fids[ok]])
     span = float(np.linalg.norm(gt.max(0) - gt.min(0)))
@@ -200,9 +213,140 @@ def _ate_prefixes(eng, scene, step: int = 8) -> list:
     return out
 
 
+def _warm_loop_paths(eng):
+    """bench.py's ``_warm_loop_paths`` (``bench.py:70-92``), copied: importing
+    bench.py turns on JAX's persistent compilation cache for the process."""
+    if eng._vocab is None:
+        return
+    saved = (eng._loop._pending_detect, list(eng._loop._consistent), eng._loop._eval_stamp,
+             eng._loop.last_eval_det_seq)
+    eng._loop._pending_detect = None
+    eng._loop.dispatch(eng.m, eng._bow_db, eng._vocab, max(eng.kf_count - 1, 0))
+    det = eng._loop.take_pending()
+    if det is not None:
+        eng._loop.evaluate(det[0], np.asarray(det[1]), det[2])
+    (eng._loop._pending_detect, eng._loop._consistent, eng._loop._eval_stamp,
+     eng._loop.last_eval_det_seq) = saved
+
+
+def bench_schedule(eng, n_frames, fps, one, extract, recover, *, n_single, warm_end, occlude_at, B=8,
+                   log=lambda msg: None) -> dict:
+    """bench.py's loop (``bench.py:100-142``, ``172-203``), copied, over any
+    frames: ``one(i)`` the per-frame entry of the first ``n_single`` frames,
+    ``extract(i)`` frames [i, i + B) through the batched frontend, ``recover(i)``
+    the per-frame entry until OK. Returns the timed window's first frame and
+    its count by bench.py's formula."""
+    def run_batch(i, occlude=False):
+        batch = extract(i)
+        if occlude:
+            batch = batch._replace(valid=batch.valid.at[: B // 2].set(False))
+        eng.track_batch(batch, [float(i + j) / fps for j in range(B)])
+        log(f"batch at {i}: kfs={eng.kf_count} state={eng.state}")
+
+    for i in range(n_single):
+        one(i)
+    for i in range(n_single, warm_end, B):
+        run_batch(i, occlude=(i == occlude_at))
+    eng.flush()
+    _warm_loop_paths(eng)
+    while eng.frame_id < warm_end + 2 * B and eng.state != "OK":
+        recover(eng.frame_id)
+    start = ((eng.frame_id + B - 1) // B) * B
+    for i in range(start, n_frames - B + 1, B):
+        run_batch(i)
+    eng.flush()
+    return {"start": start, "n_timed": ((n_frames - B + 1 - start) // B) * B}
+
+
+BENCH_WARMUP = {"mono": dict(n_single=8, warm_end=104, occlude_at=48),
+                "stereo": dict(n_single=4, warm_end=64, occlude_at=28)}
+
+
+def run_bench(workload: str) -> dict:
+    """One of bench.py's workloads on the reference engine, as bench.py runs it."""
+    import jax
+
+    from dialog_tpu.config import KITTI00
+    from dialog_tpu.datasets import synth
+    from dialog_tpu.frontend import extract_features_batch
+    from dialog_tpu.stereo import extract_and_match_stereo_batch
+
+    B = pmp.BATCH
+    t0 = time.perf_counter()
+
+    def log(msg):
+        print(f"{msg} t={time.perf_counter() - t0:.1f}s", flush=True)
+
+    if workload == "bench_stereo":
+        cfg = KITTI00.replace(max_keyframes=256, max_landmarks=32768)
+        n_frames, fps, stereo = 168, 10.0, True
+        scene = synth.make_scene(seed=7, n_points=6000, n_frames=n_frames, cfg=cfg)
+        scene_r = scene._replace(t=scene.t - np.array([cfg.baseline, 0.0, 0.0], np.float32))
+        left = [jnp.asarray(synth.render_image(scene, i)) for i in range(n_frames)]
+        right = [jnp.asarray(synth.render_image(scene_r, i)) for i in range(n_frames)]
+        eng = Engine(cfg)
+
+        def one(i):
+            eng.track_stereo(left[i], right[i], float(i) / fps)
+
+        def extract(i):
+            return extract_and_match_stereo_batch(jnp.stack(left[i : i + B]), jnp.stack(right[i : i + B]), cfg)
+
+        recover = one
+    else:
+        cfg = JConfig(
+            width=640, height=480, n_features=1000, max_features=1024,
+            max_keyframes=256, max_landmarks=16384, max_local_lms=2048,
+            max_local_kfs=16, max_fixed_kfs=16, max_obs_per_lm=8,
+            local_ba_iters=5, max_frames_between_kf=30,
+        )
+        n_frames, fps, stereo = 264, 30.0, False
+        scene = synth.make_scene(seed=3, n_points=2500, n_frames=n_frames, cfg=cfg)
+        images = [jnp.asarray(synth.render_image(scene, i)) for i in range(n_frames)]
+        eng = Engine(cfg)
+        eng.kf_interval = 10 if workload == "bench_kf10" else 30
+
+        def one(i):
+            eng.track_image(images[i], float(i) / fps)
+
+        def extract(i, n=B):
+            return extract_features_batch(jnp.stack(images[i : i + n]), cfg)
+
+        def recover(i):
+            eng.track_features(jax.tree_util.tree_map(lambda x: x[0], extract(i, 1)), float(i) / fps)
+
+    relocalized = [0]
+    try_relocalize = eng._try_relocalize
+
+    def counted(*args):
+        rec = try_relocalize(*args)
+        relocalized[0] += rec is not None
+        return rec
+
+    eng._try_relocalize = counted
+    warmup = BENCH_WARMUP["stereo" if stereo else "mono"]
+    window = bench_schedule(eng, n_frames, fps, one, extract, recover, **warmup, B=B, log=log)
+    states = [r.state for r in eng.trajectory]
+    frames = [round(r.timestamp * fps) for r in eng.trajectory]
+    blanked = set(range(warmup["occlude_at"], warmup["occlude_at"] + B // 2))
+    first_ok = states.index("OK") if "OK" in states else len(states)
+    kept = [s == "OK" for i, s in enumerate(states) if i >= first_ok and frames[i] not in blanked]
+    ate, _, _ = _ate(eng, scene, with_scale=not stereo, fps=fps)
+    return {"workload": workload, "frames": len(states), "state": eng.state, "first_ok": first_ok,
+            "ok_share": float(np.mean(kept)) if kept else 0.0, "keyframes": eng.kf_count,
+            "relocalizations": relocalized[0],
+            "recovered": sum(1 for a, b in zip(states, states[1:]) if a == "LOST" and b == "OK"),
+            "loop_closures": len(eng._loop.closed_loops),
+            "lost_frames": [f for f, s in zip(frames, states) if s == "LOST"],
+            "frames_not_fed": sorted(set(range(n_frames)) - set(frames)), "ate_m": ate,
+            "ate_alignment": "metric" if stereo else "similarity", "timed_first_frame": window["start"],
+            "timed_frames": window["n_timed"], "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("workload", choices=["stereo", "rgbd", "loop", "mono_batch"])
+    ap.add_argument("workload", choices=["stereo", "rgbd", "loop", "mono_batch", "bench_kf10", "bench_kf30",
+                                         "bench_stereo"])
     ap.add_argument("--tum", action="store_true", help="loop: the TUM-class configuration (max_frames_between_kf 6)")
     ap.add_argument("--batch", type=int, default=0, help="loop: 8 frames one by one, then batches of this size")
     ap.add_argument("--pipelined", action="store_true", help="loop: every frame through track_features_async")
@@ -214,6 +358,8 @@ def main() -> int:
         out = run_loop(args.tum, args.batch, args.pipelined, args.period, gba=not args.no_gba)
     elif args.workload == "mono_batch":
         out = run_mono_batch()
+    elif args.workload.startswith("bench_"):
+        out = run_bench(args.workload)
     else:
         out = run_images(args.workload)
     print(json.dumps(out), flush=True)
