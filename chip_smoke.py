@@ -19,10 +19,13 @@ Needs one CUDA card and nvcc; exits non-zero without them. It
    synthetic window of the path's shape (C=32, P=2048, O=8), so that the
    check does not depend on where the run's trajectory ended;
 5. drives the stereo path, ``Engine.track_stereo`` over 48 rendered 1241x376
-   pairs at the KITTI00 preset (bench.py's capacities), and checks kernel C's
-   stereo (uR) variant as in 4: direct outputs on that engine's window, the
-   8-iteration solve on a seeded window (C=64, P=8192, O=12, a right-x on
-   half the observations);
+   pairs at the KITTI00 preset (bench.py's capacities), prints its per-frame
+   decisions (keyframe frames, n_tracked at frames 1-12) beside the JAX
+   engine's on the same pairs (``tools/stereo_reference_trace.json``, taken
+   on the CPU) with the first frame where they differ, not gated, and checks
+   kernel C's stereo (uR) variant as in 4: direct outputs on that engine's
+   window, the 8-iteration solve on a seeded window (C=64, P=8192, O=12, a
+   right-x on half the observations);
 6. drives the RGB-D path, ``Engine.track_rgbd`` over 24 rendered 640x480
    frames with their depth maps at the TUM1 RGB-D settings;
 7. drives the batched paths at bench.py's batch of 8. ``mono_batch``: 8 frames
@@ -184,6 +187,10 @@ ATE_GATE = 0.35         # metres, the reference's image-in-the-loop gate (simila
 # metres, metric ATE (rigid alignment, no scale) of the stereo path: twice the
 # reference engine's own 0.1226 m on the same 48 frames (tools/reference_ate.py, PERF.md)
 STEREO_ATE_GATE = 0.25
+# the JAX engine's per-frame decisions on the stereo path's 48 pairs, on the CPU (tools/stereo_parity_trace.py
+# --reference-out): printed beside the card's, not gated (ROADMAP D7)
+STEREO_REFERENCE_TRACE = "tools/stereo_reference_trace.json"
+STEREO_TRACE_FRAMES = 12     # n_tracked printed for frames 1..this
 RGBD_ATE_GATE = 0.05    # metres, metric: the reference's stereo/RGB-D gate (tests/test_stereo_rgbd.py)
 # the batched paths: (workload, frames, frames fed one by one first, first frame of the half-blanked batch,
 # whether a codebook must exist by then and a relocalization must succeed). The stereo run is too short for a
@@ -648,6 +655,40 @@ def check_path(name, eng, scene, launches, *, with_scale: bool, ate_gate: float,
     for k, n in max_launches.items():
         if launches[k] > n:
             fail(f"{name}: kernel {k} launched {launches[k]} > {n} times")
+    return out
+
+
+def keyframe_frames(eng) -> list[int]:
+    """The frames at which the engine inserted its keyframes, in insertion order."""
+    seq, fid = eng.m.kfs.seq.cpu().numpy(), eng.m.kfs.frame_id.cpu().numpy()
+    used = np.nonzero(seq >= 0)[0]
+    return [int(fid[k]) for k in used[np.argsort(seq[used])]]
+
+
+def stereo_decisions(eng) -> dict:
+    """The stereo path's per-frame decisions on the card beside the JAX
+    engine's on the same pairs (``STEREO_REFERENCE_TRACE``, taken on the CPU):
+    the frames where keyframes were taken, n_tracked at frames 1 to
+    ``STEREO_TRACE_FRAMES``, and the first frame where state, n_tracked or the
+    keyframe decision differ. Printed, not gated: the card sums in another
+    order than the CPU, and the engines part at float32 rounding edges of the
+    triangulation (ROADMAP D7)."""
+    from pathlib import Path
+
+    ref = json.loads((Path(__file__).resolve().parent / STEREO_REFERENCE_TRACE).read_text())
+    recs = eng.trajectory
+    kf_card = keyframe_frames(eng)
+    n = min(len(recs), ref["frames"])
+    card = [(recs[i].state, recs[i].n_tracked, i in kf_card) for i in range(n)]
+    jax_cpu = [(ref["states"][i], ref["n_tracked"][i], i in ref["keyframe_frames"]) for i in range(n)]
+    first = next((i for i in range(n) if card[i] != jax_cpu[i]), None)
+    out = {"card": {"keyframe_frames": kf_card,
+                    "n_tracked_1_%d" % STEREO_TRACE_FRAMES: [r.n_tracked for r in recs[1:STEREO_TRACE_FRAMES + 1]]},
+           "jax_cpu": {"keyframe_frames": ref["keyframe_frames"],
+                       "n_tracked_1_%d" % STEREO_TRACE_FRAMES: ref["n_tracked"][1:STEREO_TRACE_FRAMES + 1],
+                       "ate_m": ref["ate_m"]},
+           "first_difference_frame": first}
+    say("stereo decisions: " + json.dumps(out))
     return out
 
 
@@ -2834,6 +2875,7 @@ def main() -> int:
     check_path("stereo", seng, sscene, slaunches, with_scale=False, ate_gate=STEREO_ATE_GATE, min_kfs=4,
                min_launches={"fast_nms_rank": 2 * n_st, "hamming_mutual": 1, "schur_reduce_stereo": 1},
                max_launches={"fast_nms_rank": 2 * n_st, "schur_reduce": 0})
+    stereo_decisions(seng)
     err_cs, rel_cs, sprob = check_schur(seng, seng.cfg, dev)
     mark("stereo")
 

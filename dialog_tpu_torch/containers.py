@@ -39,6 +39,22 @@ class FrameArrays(NamedTuple):
     depth: torch.Tensor     # f32[F]     metric depth; <=0 = unknown
 
 
+def empty_frame(F: int, device="cuda") -> FrameArrays:
+    """A frame of ``F`` feature slots, none valid (no stereo right-x, no depth)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return FrameArrays(
+        uv=torch.zeros((F, 2), **f32),
+        uv_raw=torch.zeros((F, 2), **f32),
+        response=torch.zeros((F,), **f32),
+        octave=torch.zeros((F,), dtype=torch.int32, device=device),
+        angle=torch.zeros((F,), **f32),
+        desc=torch.zeros((F, 8), dtype=torch.int32, device=device),
+        valid=torch.zeros((F,), dtype=torch.bool, device=device),
+        u_right=-torch.ones((F,), **f32),
+        depth=-torch.ones((F,), **f32),
+    )
+
+
 class KeyframeStore(NamedTuple):
     """All keyframes. K = cfg.max_keyframes, F = cfg.max_features."""
 

@@ -222,3 +222,12 @@ def render_depth(scene: SynthScene, frame: int, patch_r: int = 5) -> np.ndarray:
         x0, y0 = int(round(u[i])), int(round(v[i]))
         depth[y0 - patch_r : y0 + patch_r + 1, x0 - patch_r : x0 + patch_r + 1] = z[i]
     return depth
+
+
+def gt_relative_pose(scene: SynthScene, i: int, j: int):
+    """T_ji: pose of frame j relative to frame i (X_j = R X_i + t)."""
+    Ri, ti = scene.R[i], scene.t[i]
+    Rj, tj = scene.R[j], scene.t[j]
+    R = Rj @ Ri.T
+    t = tj - R @ ti
+    return R.astype(np.float32), t.astype(np.float32)

@@ -10,6 +10,7 @@ does not depend on CUDA's write order.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import geometry as geo
@@ -134,6 +135,10 @@ def _tri_candidates(Ra, ta, uv_a, desc_a, oct_a, free_a, Rb, tb, uv_b, desc_b, o
                     cfg: EngineConfig):
     """Epipolar-gated match + triangulation checks for one keyframe pair.
 
+    As the reference does, the parallax gate is taken at the triangulated
+    point, after the linear solve: a pair whose rays barely part solves to a
+    point a few centimetres in front of the cameras, where the parallax is
+    wide and the reprojection error small, and passes (ROADMAP R11).
     Returns (X [F,3], good [F], jb [F]).
     """
     F = uv_a.shape[0]
@@ -232,6 +237,14 @@ def triangulate_fanout(m: MapState, slot_a, neighbors, cfg: EngineConfig) -> Map
     return update_covis_for_kf(m, slot_a)
 
 
+def triangulate_between(m: MapState, slot_a, slot_b, cfg: EngineConfig) -> MapState:
+    """New landmarks from the unmatched features of two keyframes
+    (LocalMapping::CreateNewMapPoints for one pair): ``triangulate_fanout``
+    with the one neighbour ``slot_b``."""
+    nb = torch.as_tensor(slot_b, device=m.kfs.valid.device).reshape(1)
+    return triangulate_fanout(m, slot_a, nb, cfg)
+
+
 def fuse_landmarks_into_kf(m: MapState, src_kf, dst_kf, cfg: EngineConfig, recount: bool = True) -> MapState:
     """Project src's landmarks into dst; add observations / merge duplicates
     (LocalMapping::SearchInNeighbors + ORBmatcher::Fuse)."""
@@ -315,6 +328,15 @@ def refresh_landmark_geometry(m: MapState, slot, cfg: EngineConfig) -> MapState:
         dmin=ops.scatter_set(lms.dmin, tgt, dmax_new / lev_factor),
     )
     return m._replace(lms=lms)
+
+
+def best_covisible(m: MapState, slot: int, n: int) -> list[int]:
+    """Host-side: the top-n covisible keyframe slots of ``slot`` (weight > 0),
+    heaviest first, ties ordered as the reference's ``np.argsort`` orders them."""
+    row = m.covis[slot].cpu().numpy()
+    row = np.where(m.kfs.valid.cpu().numpy(), row, 0)
+    order = np.argsort(-row)
+    return [int(k) for k in order[:n] if row[k] > 0]
 
 
 def cull_keyframes(m: MapState, cur_kf, cfg: EngineConfig) -> MapState:

@@ -5,6 +5,34 @@ from __future__ import annotations
 import torch
 
 
+def inv3x3(A: torch.Tensor) -> torch.Tensor:
+    """Closed-form adjugate inverse of batched 3x3 matrices (a determinant
+    below 1e-18 in magnitude is taken as 1e-18, as the reference does)."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    A11 = e * i - f * h
+    A12 = c * h - b * i
+    A13 = b * f - c * e
+    A21 = f * g - d * i
+    A22 = a * i - c * g
+    A23 = c * d - a * f
+    A31 = d * h - e * g
+    A32 = b * g - a * h
+    A33 = a * e - b * d
+    det = a * A11 + b * A21 + c * A31
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-18, torch.full_like(det, 1e-18), det)
+    adj = torch.stack(
+        [
+            torch.stack([A11, A12, A13], -1),
+            torch.stack([A21, A22, A23], -1),
+            torch.stack([A31, A32, A33], -1),
+        ],
+        -2,
+    )
+    return adj * inv_det[..., None, None]
+
+
 def chol3x3(A: torch.Tensor) -> torch.Tensor:
     """Closed-form lower Cholesky factor of batched SPD 3x3 matrices."""
     a11 = torch.sqrt(torch.clamp(A[..., 0, 0], min=1e-18))

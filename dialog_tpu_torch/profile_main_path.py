@@ -122,11 +122,12 @@ def kitti_stereo_config():
     return KITTI00.replace(max_keyframes=256, max_landmarks=32768)
 
 
-def render_stereo_frames(cfg, n: int = STEREO_FRAMES):
-    """bench.py's stereo scene and its first ``n`` (left, right) pairs."""
+def render_stereo_frames(cfg, n: int = STEREO_FRAMES, seed: int = 7):
+    """bench.py's stereo scene (``seed`` 7; another seed gives another scene
+    of the same kind) and its first ``n`` (left, right) pairs."""
     from .datasets import synth
 
-    scene = synth.make_scene(seed=7, n_points=6000, n_frames=168, cfg=cfg)
+    scene = synth.make_scene(seed=seed, n_points=6000, n_frames=168, cfg=cfg)
     scene_r = scene._replace(t=scene.t - np.array([cfg.baseline, 0.0, 0.0], np.float32))
     return scene, [(synth.render_image(scene, i), synth.render_image(scene_r, i)) for i in range(n)]
 

@@ -1,8 +1,9 @@
 """Per-frame tracking: the data path of the Track() state machine.
 
-Port of ``dialog_tpu/tracking.py``: motion-model projection search, the
-reference-keyframe fallback, pose optimization, the local-map search, a
-second pose optimization and outlier filtering, all in ``fused_track_step``.
+Port of ``dialog_tpu/tracking.py``: motion-model projection search (also on
+its own, ``track_motion_model``), the reference-keyframe fallback, pose
+optimization, the local-map search, a second pose optimization and outlier
+filtering, all in ``fused_track_step``.
 Projection searches go through ``matching.match_projected`` (kernel B).
 
 ``fused_track_step_auto`` predicts the pose on the device from the two
@@ -13,6 +14,8 @@ queued without a stall and the host pulls its ``packed`` rows once.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import geometry as geo
@@ -20,6 +23,13 @@ from . import matching, ops
 from .config import EngineConfig
 from .containers import INVALID_ID, FrameArrays, MapState
 from .optim.pose_only import pose_optimization
+
+
+class TrackOut(NamedTuple):
+    """A tracked pose (world->camera)."""
+
+    R: torch.Tensor
+    t: torch.Tensor
 
 
 def predict_scale(dist, dmax, cfg: EngineConfig):
@@ -79,6 +89,15 @@ def _motion_match(m, last_lm_ids, frame: FrameArrays, R_pred, t_pred, cfg, radiu
     )
     lm_of_feat = _invert_matches(match_ft, ids, F, L)
     return lm_of_feat, torch.sum((lm_of_feat >= 0).to(torch.int32))
+
+
+def track_motion_model(m: MapState, last_lm_ids, frame: FrameArrays, R_pred, t_pred, cfg: EngineConfig,
+                       radius: float = 15.0):
+    """TrackWithMotionModel's projection search as its own entry point: the
+    last frame's landmarks projected into the predicted pose and matched
+    within ``radius`` pixels (``fused_track_step``'s first search). Returns
+    (lm_of_feat i32[F] (-1 = none), n_matches i32)."""
+    return _motion_match(m, last_lm_ids, frame, R_pred, t_pred, cfg, radius)
 
 
 def match_reference_kf(m: MapState, ref_kf, frame: FrameArrays, cfg: EngineConfig):

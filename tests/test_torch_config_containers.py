@@ -197,3 +197,23 @@ class TestCheckpointCrossLoad:
                 else:
                     np.testing.assert_array_equal(np.asarray(a), getattr(got, name).numpy(), err_msg=name)
             assert (got.obs_ur is not None) == (stereo_frac > 0)
+
+
+@pytest.mark.parametrize("F", [1, 64, 2048])
+def test_empty_frame_matches_reference(F):
+    """Same fields, shapes and values; descriptors as the port stores them
+    (``int32`` bits of the reference's ``uint32`` words)."""
+    a = jax.device_get(jc.empty_frame(F))
+    b = tc.empty_frame(F, device="cpu")
+    assert b._fields == a._fields
+    for name in a._fields:
+        x, y = np.asarray(getattr(a, name)), getattr(b, name).numpy()
+        if name == "desc":
+            assert x.dtype == np.uint32 and y.dtype == np.int32
+            x = x.view(np.int32)
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        np.testing.assert_array_equal(x, y, err_msg=name)
+    back = interop.frame_from_numpy(a, device="cpu")
+    for name in a._fields:
+        assert torch.equal(getattr(back, name), getattr(b, name)), name
+

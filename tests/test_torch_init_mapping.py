@@ -207,3 +207,44 @@ def test_alloc_landmarks_matches_reference(kf_inputs):
     at, st = tmap.alloc_landmarks(mt, _t(X), _t(desc), _t(octv), _t(mask), 1, _t(cam), TCFG)
     np.testing.assert_array_equal(np.asarray(sj), st.numpy())
     _assert_maps(aj, at)
+
+
+def test_triangulate_between_matches_reference(kf_inputs):
+    """One keyframe pair (``triangulate_fanout`` with one neighbour), the new
+    keyframe against each of its covisible neighbours."""
+    mj, mt, jargs, targs, slot = _both(kf_inputs)
+    mj = jmap.insert_keyframe(mj, *jargs, JCFG)
+    mt = tmap.insert_keyframe(mt, *targs, TCFG)
+    nbs = [k for k in tmap.best_covisible(mt, slot, 3)]
+    assert nbs
+    for nb in nbs:
+        aj = jax.device_get(jmap.triangulate_between(mj, jnp.int32(slot), jnp.int32(nb), JCFG))
+        at = tmap.triangulate_between(mt, slot, nb, TCFG)
+        assert int(aj.num_lms) == int(at.num_lms)
+        np.testing.assert_array_equal(aj.lms.valid, at.lms.valid.numpy())
+        np.testing.assert_array_equal(aj.kfs.obs_lm, at.kfs.obs_lm.numpy())
+        live = aj.lms.valid
+        np.testing.assert_allclose(aj.lms.xyz[live], at.lms.xyz.numpy()[live], atol=FLOAT_TOL, rtol=FLOAT_TOL)
+    assert int(aj.num_lms) > int(jax.device_get(mj).num_lms)
+
+
+def test_best_covisible_matches_reference(kf_inputs):
+    """Equal lists for every keyframe and n, ties included: a row of equal
+    weights and a row with a tie inside the top n."""
+    mj, mt, _, _, _ = _both(kf_inputs)
+    K = JCFG.max_keyframes
+    for slot in range(K):
+        for n in (1, 3, K):
+            assert tmap.best_covisible(mt, slot, n) == jmap.best_covisible(mj, slot, n), (slot, n)
+    covis = np.array(jax.device_get(mj.covis))
+    covis[0] = 7
+    covis[1, :] = [5, 0, 9, 5, 5, 9, 1, 0, 5, 5, 0, 2, 9, 0, 5, 1]
+    valid = np.array(jax.device_get(mj.kfs.valid))
+    valid[:] = True
+    valid[3] = False
+    tied_j = mj._replace(covis=jnp.asarray(covis), kfs=mj.kfs._replace(valid=jnp.asarray(valid)))
+    tied_t = mt._replace(covis=torch.from_numpy(covis), kfs=mt.kfs._replace(valid=torch.from_numpy(valid)))
+    for slot in (0, 1):
+        for n in (2, 4, 6, K):
+            assert tmap.best_covisible(tied_t, slot, n) == jmap.best_covisible(tied_j, slot, n), (slot, n)
+

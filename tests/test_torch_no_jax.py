@@ -7,7 +7,10 @@ extracts features from a 160x120 image with the port's plain frontend (one
 image and a batch of two), trains and queries a small vocabulary, solves a
 PnP problem, a Sim3 RANSAC problem, a seeded Sim3 pose graph and a seeded BA
 problem by the Schur PCG, folds the result into a map, runs a block BA on a
-small corridor map, decodes a PNG that ``write_png`` wrote and runs
+small corridor map, decodes a PNG that ``write_png`` wrote, calls the
+reference's last public names that the port took over (``empty_frame``,
+``inv3x3``, ``gt_relative_pose``, ``best_covisible``,
+``triangulate_between``, ``track_motion_model``, ``TrackOut``) and runs
 ``cli.main(["run-synth", "--frames", "12", "--device", "cpu"])`` and the
 CLI's ``bench`` subcommand (its workloads replaced by fixed frames/s). A static
 check finds no import of those five and no reference to the JAX package in
@@ -104,6 +107,20 @@ bench.run_mono = lambda kf, *a, **k: {10: 9.0, 30: 12.0}[kf]
 bench.run_stereo = lambda *a, **k: 6.0
 cli.main(["bench", "--device", "cpu"])
 assert "dialog_tpu_torch.bench" in names
+from dialog_tpu_torch import containers, mapping, tracking
+from dialog_tpu_torch.datasets import synth
+from dialog_tpu_torch.optim import lm
+F0 = synth_problem.FIXTURE_CFG.max_features
+ef = containers.empty_frame(F0, device="cpu")
+assert not bool(ef.valid.any()) and ef.desc.dtype == torch.int32 and ef.uv.shape == (F0, 2)
+assert torch.allclose(lm.inv3x3(2.0 * torch.eye(3).expand(4, 3, 3)), 0.5 * torch.eye(3).expand(4, 3, 3))
+sc = synth.make_scene(seed=0, n_points=20, n_frames=3)
+assert synth.gt_relative_pose(sc, 0, 2)[0].dtype == np.float32
+assert mapping.best_covisible(m0, 0, 3) == []
+assert int(mapping.triangulate_between(m0, 0, 1, synth_problem.FIXTURE_CFG).num_lms) == 0
+lmf, nmm = tracking.track_motion_model(m0, torch.full((F0,), -1, dtype=torch.int32), ef, torch.eye(3), torch.zeros(3),
+                                       synth_problem.FIXTURE_CFG)
+assert int(nmm) == 0 and tracking.TrackOut(torch.eye(3), torch.zeros(3)).R.shape == (3, 3)
 loaded = [m for m in sys.modules if sys.modules[m] is not None]
 assert not [m for m in loaded if m.split(".")[0] in ("jax", "cv2", "PIL", "matplotlib")]
 print(len(names), int(fr.valid.sum()), tuple(fr.desc.shape))

@@ -203,3 +203,38 @@ def test_tracking_helpers_match_reference(tracked):
     counts_t = (torch.ones_like(mt.lms.n_visible), torch.zeros_like(mt.lms.n_found))
     got = tt.apply_track_counts(mt, counts_t)
     np.testing.assert_array_equal(got.lms.n_visible.numpy(), np.asarray(mj.lms.n_visible) + 1)
+
+
+def test_track_motion_model_matches_reference(tracked):
+    """The public projection search (TrackWithMotionModel), default radius 15
+    and a wider one: equal associations and count; TrackOut carries a pose."""
+    (mj, lastj, frj, Rpj, tpj, _, _, _), (mt, lastt, frt, Rpt, tpt, _, _, _) = tracked
+    for kw in ({}, {"radius": 30.0}):
+        lj, nj = jt.track_motion_model(mj, lastj, frj, Rpj, tpj, JCFG, **kw)
+        lt, nt = tt.track_motion_model(mt, lastt, frt, Rpt, tpt, TCFG, **kw)
+        np.testing.assert_array_equal(np.asarray(lj), lt.numpy())
+        assert int(nj) == int(nt) > 50
+    out = tt.TrackOut(Rpt, tpt)
+    assert out._fields == jt.TrackOut._fields and out.R is Rpt and out.t is tpt
+
+
+def test_inv3x3_matches_reference():
+    rng = np.random.default_rng(3)
+    A = rng.normal(size=(256, 3, 3)).astype(np.float32)
+    A = (A @ A.transpose(0, 2, 1) + np.eye(3, dtype=np.float32)).astype(np.float32)   # well conditioned
+    got = tlm.inv3x3(torch.from_numpy(A)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jlm.inv3x3(jnp.asarray(A))), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(got @ A, np.broadcast_to(np.eye(3), A.shape), atol=1e-4)
+    z = np.zeros((2, 3, 3), np.float32)   # a singular batch: the determinant guard, as the reference's
+    np.testing.assert_array_equal(tlm.inv3x3(torch.from_numpy(z)).numpy(), np.asarray(jlm.inv3x3(jnp.asarray(z))))
+
+
+def test_gt_relative_pose_matches_reference():
+    from dialog_tpu_torch.datasets import synth as tsynth
+
+    js = jsynth.make_scene(seed=5, n_points=50, n_frames=12, cfg=JCFG)
+    ts = tsynth.make_scene(seed=5, n_points=50, n_frames=12, cfg=TCFG)
+    for i, j in ((0, 1), (3, 11), (7, 2)):
+        for a, b in zip(jsynth.gt_relative_pose(js, i, j), tsynth.gt_relative_pose(ts, i, j)):
+            assert b.dtype == np.float32
+            np.testing.assert_array_equal(np.asarray(a), b)
