@@ -144,6 +144,11 @@ frames (mono: by relocalization), kernel A once per batched frontend call,
 ``hamming_mutual`` and the workload's kernel C variant launched, and an ATE
 below twice the JAX engine's on the same frames under the same schedule
 (``tools/reference_ate.py bench_*``). A non-zero exit fails the script.
+Then ``bench_reloc_margin`` replays ``tum_mono_kf10``'s warm-up in this
+process and prints, not gated, the room its relocalization after the blanked
+frames has on the card: the frame, the candidate keyframe, the matches, the
+PnP inliers with the engine's draw and with 16 further draws of its
+generator, and the refined inliers, each beside its gate (ROADMAP D22).
 
 Each path runs on a fresh engine, with every kernel's launch count reset just
 before it and read just after (``hamming_best2``, the standalone form of
@@ -286,6 +291,11 @@ BENCH_WORKLOADS = {"tum_mono_kf10": ("bench_kf10", 30.0, "schur_reduce"),
 BENCH_REFERENCE_ATE = {"tum_mono_kf10": 0.6588, "tum_mono_kf30": 0.8539, "kitti_stereo": 0.1699}
 BENCH_OK_SHARE = 0.9
 BENCH_TIMEOUT_S = 600
+BENCH_WARM_END = 104    # tum_mono_kf10's warm-up (bench.run_mono's defaults), replayed for its relocalization margin
+BENCH_OCCLUDE_AT = 48
+RELOC_MIN_MATCHES = 15  # _try_relocalize's descriptor-match gate
+PNP_MIN_INLIERS = 15    # solve_pnp_ransac's default
+RELOC_REDRAWS = 16      # the same PnP problem solved again with the engine generator's next draws
 
 KERNELS = {
     "fast_nms_rank": ("dialog_tpu_torch/csrc/fast.cu", "dialog_tpu/kernels/fast.py:118"),
@@ -2666,6 +2676,97 @@ def bench_phase(smi) -> dict:
     return out
 
 
+def bench_reloc_margin(dev, smi, seed: int | None = None, warm_end: int = BENCH_WARM_END) -> dict:
+    """The room the bench's primary workload has at its relocalization after
+    the blanked frames, on the card (ROADMAP D22). ``tum_mono_kf10``'s warm-up
+    (``bench.schedule`` to frame BENCH_WARM_END, no timed window) on a fresh
+    engine, the bench's scene, images and configuration, with the three steps
+    of every relocalization attempt recorded on the port's modules: per
+    candidate keyframe the descriptor matches against RELOC_MIN_MATCHES, the
+    PnP RANSAC inliers against PNP_MIN_INLIERS with the engine's own draw and
+    with the next RELOC_REDRAWS draws of a copy of its generator (the engine's
+    own stream is left as it was), and the refined inliers against
+    ``reloc_min_inliers``. Printed on one line, not gated. ``seed`` reseeds
+    the engine's generator (``tools/reloc_draw_sweep.py``); ``warm_end`` cuts
+    the warm-up (the relocalization at frame 52 is the same from 56 on)."""
+    from dialog_tpu_torch import bench, pnp, system, tracking
+    from dialog_tpu_torch.containers import FrameArrays
+    from dialog_tpu_torch.datasets import synth
+    from dialog_tpu_torch.frontend import extract_features_batch
+    from dialog_tpu_torch.profile_main_path import tum_mono_config
+
+    cfg = tum_mono_config()
+    scene = synth.make_scene(seed=3, n_points=2500, n_frames=bench.MONO_FRAMES, cfg=cfg)
+    images = [torch.from_numpy(synth.render_image(scene, i)).to(dev) for i in range(warm_end + 2 * BATCH)]
+    eng = system.Engine(cfg, device=dev)
+    eng.kf_interval = KF_INTERVAL
+    if seed is not None:
+        eng._gen.manual_seed(seed)
+    attempts = []
+    orig = (tracking.match_reference_kf, pnp.solve_pnp_ransac, system.pose_optimization)
+
+    def match(m, cand, frame, cfg_):
+        out = orig[0](m, cand, frame, cfg_)
+        attempts[-1]["candidates"].append({"kf": int(cand), "matches": [int(out[1]), RELOC_MIN_MATCHES]})
+        return out
+
+    def solve(*a, **kw):
+        out = orig[1](*a, **kw)
+        gen = torch.Generator(device=eng._gen.device)
+        gen.set_state(eng._gen.get_state())
+        others = [int(orig[1](*a[:7], pnp.draw_pnp_sets(a[2], cfg.pnp_ransac_iters, gen), **kw).n_inliers)
+                  for _ in range(RELOC_REDRAWS)]
+        attempts[-1]["candidates"][-1].update(pnp_inliers=[int(out.n_inliers), PNP_MIN_INLIERS],
+                                              pnp_inliers_other_draws=others)
+        return out
+
+    def pose(*a, **kw):
+        out = orig[2](*a, **kw)
+        attempts[-1]["candidates"][-1]["refined_inliers"] = [int(out.n_inliers), cfg.reloc_min_inliers]
+        return out
+
+    inner = eng._try_relocalize
+
+    def reloc(frame, ts):
+        attempts.append({"frame": round(ts * bench.MONO_FPS), "candidates": []})
+        tracking.match_reference_kf, pnp.solve_pnp_ransac, system.pose_optimization = match, solve, pose
+        try:
+            rec = inner(frame, ts)
+        finally:
+            tracking.match_reference_kf, pnp.solve_pnp_ransac, system.pose_optimization = orig
+        attempts[-1]["relocalized"] = rec is not None
+        return rec
+
+    eng._try_relocalize = reloc
+
+    def extract(i, n):
+        return extract_features_batch(torch.stack(images[i : i + n]), cfg)
+
+    t0 = time.perf_counter()
+    bench.schedule(eng, warm_end, bench.MONO_FPS, lambda i: eng.track_image(images[i], i / bench.MONO_FPS),
+                   extract, lambda i: eng.track_features(FrameArrays(*[x[0] for x in extract(i, 1)]),
+                                                         i / bench.MONO_FPS),
+                   n_single=bench.MONO_SINGLE, warm_end=warm_end, occlude_at=BENCH_OCCLUDE_AT)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    tried = [a for a in attempts if a["candidates"]]
+    hit = next((a for a in attempts if a["relocalized"]), tried[-1] if tried else None)
+    frames = [(round(r.timestamp * bench.MONO_FPS), r.state) for r in eng.trajectory]
+    first_ok = next((f for f, st in frames if st == "OK"), None)
+    blanked_end = BENCH_OCCLUDE_AT + BATCH // 2
+    recovered = next((f for f, st in frames if f >= blanked_end and st == "OK"), None)
+    out = {"workload": "tum_mono_kf10", "seed": cfg.n_features if seed is None else seed, "initialized_at": first_ok,
+           "frame": None if hit is None else hit["frame"],
+           "relocalized": bool(hit and hit["relocalized"]), "candidates": [] if hit is None else hit["candidates"],
+           "attempts": len(attempts), "relocalizations": sum(a["relocalized"] for a in attempts),
+           "ok_again_at": recovered, "lost_after_it": sum(1 for f, st in frames if recovered is not None and
+                                                          f > recovered and st != "OK"), "state": eng.state,
+           "warm_up_s": time.perf_counter() - t0}
+    say("bench relocalization margin (tum_mono_kf10, the relocalization after the blanked frames; not a gate): "
+        + json.dumps(out) + f" on {smi}")
+    return out
+
+
 def check_bench(lines) -> dict:
     """The bench's output held to bench.py's contract and each workload's
     ``#`` line to the bench gates (module docstring)."""
@@ -2856,6 +2957,8 @@ def main() -> int:
     # the bench as users run it, in a child process: bench.py's three workloads
     bench = bench_phase(smi)
     mark("bench")
+    bench_reloc_margin(dev, smi)
+    mark("bench_reloc_margin")
 
     # mono path: kernel A once per image (all pyramid levels in one launch),
     # kernel B once per mutual match

@@ -3,8 +3,8 @@
 
 The port takes every random draw from the reference engine's own
 ``jax.random`` key stream (``ReferenceStream``: the two-view minimal sets,
-the vocabulary's initial words, the PnP minimal sets, in the order the
-reference splits its key), so both engines start from the same hypotheses
+the vocabulary's initial words, the PnP and the Sim3 minimal sets, in the
+order the reference splits its key), so both engines start from the same hypotheses
 and the same codebook.
 
 Gates:
@@ -29,6 +29,7 @@ from dialog_tpu.datasets import synth as jsynth
 from dialog_tpu.system import Engine as JEngine
 from dialog_tpu_torch import init2view as ti
 from dialog_tpu_torch import interop
+from dialog_tpu_torch import loopclosing as tlc
 from dialog_tpu_torch import pnp as tpnp
 from dialog_tpu_torch import vocab as tvocab
 from dialog_tpu_torch.config import EngineConfig as TConfig
@@ -48,12 +49,17 @@ class ReferenceStream:
     """The port's random draws, taken from the reference engine's key stream
     (``PRNGKey(n_features)``) in the reference's order: one split per
     initialization attempt and per PnP call; per vocabulary (re)train one
-    split, and a second one whose subkey draws a fresh codebook's words."""
+    split, and a second one whose subkey draws a fresh codebook's words; one
+    split per ``compute_sim3`` call, whose subkey draws the Sim3 minimal sets
+    (the reference splits before the call, so an attempt that stops at the
+    match count takes its split too)."""
 
     def __init__(self, n_features: int = 1000):
         self.key = jax.random.PRNGKey(n_features)
         self._drew_init = False
         self._train = tvocab.train_vocab
+        self._compute_sim3 = tlc.LoopCloser.compute_sim3
+        self._sim3_key = None
 
     def _split(self):
         self.key, sub = jax.random.split(self.key)
@@ -83,11 +89,23 @@ class ReferenceStream:
         n_valid = max(int(valid.sum()), 1)
         return torch.from_numpy(np.array(jax.random.randint(self._split(), (iters, 6), 0, n_valid)))
 
+    def compute_sim3(self, loop, m, cur_kf, cand_kf, pick=None, generator=None):
+        self._sim3_key = self._split()
+        return self._compute_sim3(loop, m, cur_kf, cand_kf, pick, generator)
+
+    def sim3_sets(self, valid, iters, generator=None):
+        n_valid = max(int(valid.sum()), 1)
+        return torch.from_numpy(np.array(jax.random.randint(self._sim3_key, (iters, 3), 0, n_valid)))
+
     def patch(self, mp):
+        stream = self
         mp.setattr(ti, "draw_minimal_sets", self.minimal_sets)
         mp.setattr(tvocab, "draw_init_words", self.init_words)
         mp.setattr(tvocab, "train_vocab", self.train_vocab)
         mp.setattr(tpnp, "draw_pnp_sets", self.pnp_sets)
+        mp.setattr(tlc.LoopCloser, "compute_sim3",
+                   lambda loop, *a, **kw: stream.compute_sim3(loop, *a, **kw))
+        mp.setattr(tlc, "draw_sim3_sets", self.sim3_sets)
 
 
 @pytest.fixture(scope="module")

@@ -19,7 +19,11 @@ same state:
   (``interop.pose_graph_from_numpy``) solves as the port's own within 1e-5;
 * ``correct`` with a loop edge that disagrees with the map (the similarity
   scaled by 1.05 and turned by 0.02 rad): poses and landmarks within 2e-3
-  (15 damped Gauss-Newton steps on each side), the same landmarks fused.
+  (15 damped Gauss-Newton steps on each side), the same landmarks fused;
+* the engines' ``_close_loop_from`` on the same map and candidates, the port
+  drawing from ``ReferenceStream`` (the JAX engine's key): the same closure,
+  the stream's key equal to the JAX engine's after it, and the next PnP
+  draw (a relocalization) the same in both.
 """
 
 import numpy as np
@@ -30,13 +34,17 @@ import jax
 import jax.numpy as jnp
 
 from dialog_tpu import loopclosing as jlc
+from dialog_tpu import pnp as jpnp
 from dialog_tpu.config import EngineConfig as JConfig
 from dialog_tpu.datasets import synth as jsynth
 from dialog_tpu.system import Engine as JEngine
 from dialog_tpu_torch import geometry as tg
 from dialog_tpu_torch import interop
 from dialog_tpu_torch import loopclosing as tlc
+from dialog_tpu_torch import pnp as tpnp
 from dialog_tpu_torch.config import EngineConfig as TConfig
+from dialog_tpu_torch.system import LOST, Engine as TEngine
+from test_torch_batch_engine import ReferenceStream
 
 torch.set_num_threads(2)
 
@@ -62,7 +70,7 @@ def state():
     tdb = interop.bow_db_from_numpy(jax.device_get(jeng._bow_db), device="cpu")
     tvoc = interop.vocab_from_numpy(jax.device_get(jeng._vocab), device="cpu")
     live = [int(k) for k in np.argsort(np.asarray(jm.kfs.seq)) if bool(jm.kfs.valid[k])]
-    return dict(jeng=jeng, jm=jm, tm=tm, tdb=tdb, tvoc=tvoc, live=live)
+    return dict(jeng=jeng, jm=jm, tm=tm, tdb=tdb, tvoc=tvoc, live=live, scene=scene)
 
 
 def test_pack_detect(state):
@@ -234,3 +242,86 @@ def test_build_pose_graph_on_the_engine_map(state, th):
     carried = interop.pose_graph_from_numpy(jax.device_get(ref), device="cpu")
     for a, b in zip(tpg.solve_pose_graph(carried, iters=15)[:3], tpg.solve_pose_graph(got, iters=15)[:3]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=0)
+
+
+def _carried_engines(state):
+    """A JAX engine and a port engine on the fixture's map, codebook, BoW rows and bookkeeping."""
+    import copy
+
+    jeng = copy.copy(state["jeng"])
+    jeng._loop = jlc.LoopCloser(jeng.cfg)
+    jeng.trajectory = list(jeng.trajectory)
+    teng = TEngine(TConfig(**CFG), device="cpu")
+    teng.m = interop.map_from_numpy(jax.device_get(jeng.m), device="cpu")
+    teng._vocab, teng._bow_db = state["tvoc"], state["tdb"].clone()
+    teng._vocab_trained_kfs = jeng._vocab_trained_kfs
+    teng.kf_count, teng.ref_kf, teng.frame_id = jeng.kf_count, jeng.ref_kf, jeng.frame_id
+    teng._last_R, teng._last_t = np.array(jeng._last_R), np.array(jeng._last_t)
+    teng._kf_valid_host = np.array(jeng.m.kfs.valid)
+    return jeng, teng
+
+
+def test_reference_stream_stays_in_step_after_a_closure(state):
+    """The JAX engine splits its key once per ``compute_sim3`` call (``dialog_tpu/system.py:1384``), before
+    the call, so an attempt that stops at the match count takes a split too. With ``ReferenceStream`` the
+    port's closure draws the same Sim3 sets, and after it the stream's key is the JAX engine's: the next PnP
+    draw is equal in both."""
+    live = state["live"]
+    jeng, teng = _carried_engines(state)
+    seq = np.asarray(jeng.m.kfs.seq)
+    # the first two keyframes, then the third from the end (it closes: test_correct_parity)
+    cands = [(c, int(seq[c])) for c in (live[0], live[1], live[-3])]
+    stream = ReferenceStream()
+    stream.key = jeng._key
+    sim3_keys = {"jax": [], "port": []}
+    j_sim3, t_pnp, j_pnp = jlc.LoopCloser.compute_sim3, tpnp.solve_pnp_ransac, jpnp.solve_pnp_ransac
+    picks = {}
+
+    def j_compute(loop, m, cur, cand, key):
+        sim3_keys["jax"].append(np.array(key))
+        return j_sim3(loop, m, cur, cand, key)
+
+    def t_solve(X, uv, ok, fx, fy, cx, cy, pick, **kw):
+        picks["port"] = pick.numpy().copy()
+        return t_pnp(X, uv, ok, fx, fy, cx, cy, pick, **kw)
+
+    def j_solve(X, uv, valid, fx, fy, cx, cy, key, iters=256, **kw):
+        n_valid = max(int(np.sum(np.asarray(valid))), 1)
+        picks["jax"] = np.array(jax.random.randint(key, (iters, 6), 0, n_valid))
+        return j_pnp(X, uv, valid, fx, fy, cx, cy, key, iters=iters, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        stream.patch(mp)
+        mp.setattr(jlc.LoopCloser, "compute_sim3", j_compute)
+        mp.setattr(tpnp, "solve_pnp_ransac", t_solve)
+        mp.setattr(jpnp, "solve_pnp_ransac", j_solve)
+        sim3_draw = tlc.draw_sim3_sets          # as the stream patched it
+
+        def t_sets(valid, iters, generator=None):
+            sim3_keys["port"].append(np.array(getattr(stream, "_sim3_key", None)))
+            return sim3_draw(valid, iters, generator)
+
+        mp.setattr(tlc, "draw_sim3_sets", t_sets)
+        for eng in (jeng, teng):
+            eng._loop.last_eval_det_seq = None
+            eng._close_loop_from(live[-1], cands)
+        # the same closure, after the same attempts; each Sim3 draw of the port from the key the JAX engine
+        # passed to that attempt
+        assert teng._loop.closed_loops == jeng._loop.closed_loops and jeng._loop.closed_loops
+        assert sim3_keys["port"] and all(any(np.array_equal(k, j) for j in sim3_keys["jax"])
+                                         for k in sim3_keys["port"])
+        np.testing.assert_array_equal(sim3_keys["port"][-1], sim3_keys["jax"][-1])
+        np.testing.assert_array_equal(np.array(stream.key), np.array(jeng._key))
+        # then relocalizations, until one reaches PnP: the next PnP draw is the JAX engine's
+        for fid in (N - 1, N - 8, N - 16):
+            frame_j = jsynth.observe(state["scene"], fid, noise_px=0.5, desc_flips=6, seed=99)[0]
+            frame_t = interop.frame_from_numpy(jax.device_get(frame_j), device="cpu")
+            for eng, fr in ((jeng, frame_j), (teng, frame_t)):
+                eng.state, eng._vel = LOST, None
+                eng._try_relocalize(fr, 1.0)
+            assert ("jax" in picks) == ("port" in picks)
+            if picks:
+                break
+    assert "jax" in picks and "port" in picks
+    np.testing.assert_array_equal(picks["port"], picks["jax"])
+    np.testing.assert_array_equal(np.array(stream.key), np.array(jeng._key))

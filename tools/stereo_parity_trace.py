@@ -376,29 +376,14 @@ def replay_keyframe(args: tuple, kwargs: dict, cfg, jcfg) -> list[dict]:
     return steps
 
 
-def replay_track(args: tuple, kwargs: dict, out: tuple, cfg) -> dict:
-    """The port's ``fused_track_step`` on the JAX engine's inputs of a frame,
-    against the JAX step's output: landmark associations, n_tracked and the
-    motion-model count equal, the pose within POSE_TOL."""
-    m, last, frame, R_pred, t_pred, R_last, t_last, ref_kf = args[:8]
-    to_t = lambda x: torch.from_numpy(np.array(x))
-    _, _, lm_t, packed_t, _ = ttrack.fused_track_step(
-        to_port(m), to_t(last), interop.frame_from_numpy(frame, device="cpu"), to_t(R_pred), to_t(t_pred),
-        to_t(R_last), to_t(t_last), int(ref_kf), cfg, use_stereo=kwargs.get("use_stereo", False))
-    lm_j, pj, pt = np.asarray(out[2]), np.asarray(out[3]), packed_t.numpy()
-    diffs = []
-    if not np.array_equal(lm_j, lm_t.numpy()):
-        diffs.append(f"lm_ids: {int((lm_j != lm_t.numpy()).sum())} features")
-    if pj[24] != pt[24] or pj[25] != pt[25]:
-        diffs.append(f"n_tracked/n_motion {pj[24:26].tolist()} vs {pt[24:26].tolist()}")
-    pose_gap = float(np.abs(pj[:12] - pt[:12]).max())
-    if not pose_gap <= POSE_TOL:
-        diffs.append(f"pose {pose_gap:.3g}")
-    # the features bound differently: the final outlier gate of each package's landmark at its own pose, float64
+def _bound_differently(m, frame, lm_j, lm_t, pj, pt, cfg, use_stereo: bool) -> list[dict]:
+    """The features one frame's step binds differently in the two packages:
+    the final outlier gate of each package's landmark at its own pose
+    (packed rows ``pj``, ``pt``), in float64."""
     mb = jax.device_get(m)
-    chi2_th = cfg.chi2_stereo if kwargs.get("use_stereo", False) else cfg.chi2_mono
+    chi2_th = cfg.chi2_stereo if use_stereo else cfg.chi2_mono
     feats = []
-    for f in np.nonzero(lm_j != lm_t.numpy())[0][:MAX_LISTED]:
+    for f in np.nonzero(lm_j != lm_t)[0][:MAX_LISTED]:
         entry = {"feature": int(f), "jax_lm": int(lm_j[f]), "port_lm": int(lm_t[f])}
         for side, lm, p in (("jax", int(lm_j[f]), pj), ("port", int(lm_t[f]), pt)):
             if lm >= 0:
@@ -410,10 +395,63 @@ def replay_track(args: tuple, kwargs: dict, out: tuple, cfg) -> dict:
                                          chi2_th]
                 entry[f"{side}_depth_m"] = float(Xc[2])
         feats.append(entry)
-    return {"diffs": diffs, "pose_gap": pose_gap, "n_tracked": [float(pj[24]), float(pt[24])], "features": feats}
+    return feats
 
 
-def replay_local_ba(args: tuple, out, cfg) -> dict:
+def _row_diffs(pj: np.ndarray, pt: np.ndarray, prefix: str = "") -> tuple[list[str], float]:
+    """n_tracked, the motion-model count and the pose of two packed rows."""
+    diffs = []
+    if pj[24] != pt[24] or pj[25] != pt[25]:
+        diffs.append(f"{prefix}n_tracked/n_motion {pj[24:26].tolist()} vs {pt[24:26].tolist()}")
+    gap = float(np.abs(pj[:12] - pt[:12]).max())
+    if not gap <= POSE_TOL:
+        diffs.append(f"{prefix}pose {gap:.3g}")
+    return diffs, gap
+
+
+def replay_track(args: tuple, kwargs: dict, out: tuple, cfg) -> dict:
+    """The port's ``fused_track_step`` on the JAX engine's inputs of a frame,
+    against the JAX step's output: landmark associations, n_tracked and the
+    motion-model count equal, the pose within POSE_TOL."""
+    m, last, frame, R_pred, t_pred, R_last, t_last, ref_kf = args[:8]
+    to_t = lambda x: torch.from_numpy(np.array(x))
+    use_stereo = kwargs.get("use_stereo", False)
+    _, _, lm_t, packed_t, _ = ttrack.fused_track_step(
+        to_port(m), to_t(last), interop.frame_from_numpy(frame, device="cpu"), to_t(R_pred), to_t(t_pred),
+        to_t(R_last), to_t(t_last), int(ref_kf), cfg, use_stereo=use_stereo)
+    lm_j, pj, pt, lm_t = np.asarray(out[2]), np.asarray(out[3]), packed_t.numpy(), lm_t.numpy()
+    diffs = [f"lm_ids: {int((lm_j != lm_t).sum())} features"] if not np.array_equal(lm_j, lm_t) else []
+    row, pose_gap = _row_diffs(pj, pt)
+    return {"diffs": diffs + row, "pose_gap": pose_gap, "n_tracked": [float(pj[24]), float(pt[24])],
+            "features": _bound_differently(m, frame, lm_j, lm_t, pj, pt, cfg, use_stereo)}
+
+
+def replay_track_multi(args: tuple, kwargs: dict, out: tuple, cfg) -> dict:
+    """The port's ``fused_track_multi`` on the JAX engine's inputs of a batch,
+    against the JAX call's output: per frame n_tracked, the motion-model count
+    and the pose (POSE_TOL); the last frame's associations. Returns the port's
+    packed rows too, for the batch's resolve (``resolve_decisions``)."""
+    m, lm0, frames, R0, t0, Rp0, tp0, hv0, ref_kf = args[:9]
+    to_t = lambda x: torch.from_numpy(np.array(x))
+    use_stereo = kwargs.get("use_stereo", False)
+    ft = interop.frame_from_numpy(frames, device="cpu")
+    *_, lm_t, packed_t, _ = ttrack.fused_track_multi(
+        to_port(m), to_t(lm0), ft, to_t(R0), to_t(t0), to_t(Rp0), to_t(tp0), to_t(hv0), int(ref_kf), cfg,
+        use_stereo=use_stereo)
+    lm_j, Pj, Pt, lm_t = np.asarray(out[4]), np.asarray(out[5]), packed_t.numpy(), lm_t.numpy()
+    diffs, gaps = [], []
+    for b in range(Pj.shape[0]):
+        d, g = _row_diffs(Pj[b], Pt[b], prefix=f"frame {b}: ")
+        diffs += d
+        gaps.append(g)
+    if not np.array_equal(lm_j, lm_t):
+        diffs.append(f"last frame's lm_ids: {int((lm_j != lm_t).sum())} features")
+    last = type(frames)(*[x[-1] for x in frames])
+    return {"diffs": diffs, "pose_gap": max(gaps), "n_tracked": [Pj[:, 24].tolist(), Pt[:, 24].tolist()],
+            "features": _bound_differently(m, last, lm_j, lm_t, Pj[-1], Pt[-1], cfg, use_stereo), "port_rows": Pt}
+
+
+def replay_local_ba(args: tuple, out, cfg, near: float = NEAR_M) -> dict:
     """The port's ``local_bundle_adjustment`` on the JAX engine's map after its
     keyframe pipeline, against the JAX pass's output: landmark validity and
     observations equal, the keyframe poses within POSE_TOL, live landmark
@@ -442,7 +480,7 @@ def replay_local_ba(args: tuple, out, cfg) -> dict:
     rel = torch.where(live, (a - b).norm(dim=1) / a.norm(dim=1).clamp(min=1e-6), 0.0)
     depth = (a @ mj.kfs.R[int(slot)].double().T + mj.kfs.t[int(slot)].double())[:, 2]
     apart = rel > REL_TOL
-    far = live & (depth > NEAR_M)
+    far = live & (depth > near)
     return {"diffs": diffs, "pose_gap": gap, "pose_gap_to_float64": to64, "landmarks_apart": int(apart.sum()),
             "landmarks_apart_within_near_m": int((apart & ~far).sum()),
             "max_rel_beyond_near_m": float(rel[far].max()) if bool(far.any()) else 0.0}
