@@ -18,7 +18,8 @@ Every subcommand takes ``--frames``, ``--out``, ``--render`` (PNG or SVG)
 and ``--device`` (``cuda``, the default, or ``cpu``). Images are decoded
 without cv2 (``datasets.png``) on a background thread (``datasets.prefetch``);
 besides the reference's lines each run prints how long the loop waited for
-the next decoded frame.
+the next decoded frame, and the engine's counters (``Engine.stats``) as one
+``engine stats: {...}`` JSON line after the timing line.
 
 Where the reference differs: ``run-kitti --gt`` scores the frames tracked
 OK only (ROADMAP R3: the reference also scores pre-initialization and LOST
@@ -35,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import itertools
+import json
 import time
 
 import numpy as np
@@ -74,6 +76,11 @@ def _timing_stats(times: list[float]) -> str:
         f"median track time: {np.median(t) * 1e3:.1f} ms | "
         f"mean: {t.mean() * 1e3:.1f} ms | fps: {1.0 / max(t.mean(), 1e-9):.1f}"
     )
+
+
+def _stats_line(eng) -> str:
+    """The engine's counters (``Engine.stats``) as one JSON line."""
+    return "engine stats: " + json.dumps(eng.stats)
 
 
 def _ate_text(err: float, scale: float, unit: str) -> str:
@@ -127,6 +134,7 @@ def gt_per_frame(eng, gt) -> np.ndarray:
 
 def _finish(eng, times, out_path, fmt, gt=None, render=None):
     print(_timing_stats(times))
+    print(_stats_line(eng))
     states = [r.state for r in eng.trajectory]
     n_ok = sum(1 for s in states if s == "OK")
     print(f"tracked {n_ok}/{len(states)} frames | keyframes: {eng.kf_count}")
@@ -268,6 +276,7 @@ def run_synth(args) -> None:
     gt = np.stack([-scene.R[i].T @ scene.t[i] for i in range(n)])
     err = ate_rmse(eng.positions[idx], gt[idx]) if idx else float("nan")
     print(_timing_stats(times))
+    print(_stats_line(eng))
     print(f"tracked {len(idx)}/{n} | kfs {eng.kf_count} | ATE {_ate_text(err, 100, 'cm')}")
     if args.out:
         eng.save_trajectory_tum(args.out)

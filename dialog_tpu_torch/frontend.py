@@ -26,6 +26,7 @@ import torch
 from . import ops
 from .config import EngineConfig
 from .containers import FrameArrays
+from .instrument import span
 from .kernels.fast import fast_nms_rank_levels, fast_nms_rank_levels_batch
 
 PATCH_R = 15          # orientation / descriptor patch radius
@@ -290,7 +291,8 @@ def extract_features(img: torch.Tensor, cfg: EngineConfig) -> FrameArrays:
         raise ValueError(
             f"image shape {tuple(img.shape)} does not match config ({cfg.height}, {cfg.width})"
         )
-    return _extract_one(img, cfg)
+    with span("slam::frontend"):
+        return _extract_one(img, cfg)
 
 
 def extract_features_batch(imgs: torch.Tensor, cfg: EngineConfig) -> FrameArrays:
@@ -307,7 +309,8 @@ def extract_features_batch(imgs: torch.Tensor, cfg: EngineConfig) -> FrameArrays
         raise ValueError(
             f"image batch shape {tuple(imgs.shape)} does not match config ({cfg.height}, {cfg.width})"
         )
-    return _extract(imgs, cfg)
+    with span("slam::frontend"):
+        return _extract(imgs, cfg)
 
 
 def _extract_one(img: torch.Tensor, cfg: EngineConfig) -> FrameArrays:

@@ -3,8 +3,9 @@
 The reference's only observability is stdout banners and an end-of-run
 timing printout (SURVEY.md §5 "Metrics / logging"). Here: a JSONL run log
 with per-frame records and the engine's capacity events, a frame timer with
-percentile stats, and a ``torch.profiler`` trace context that writes a
-Chrome trace (chrome://tracing or Perfetto read it).
+percentile stats, the port's named spans (``span``), and a
+``torch.profiler`` trace context that writes a Chrome trace
+(chrome://tracing or Perfetto read it).
 """
 
 from __future__ import annotations
@@ -14,6 +15,27 @@ import json
 import os
 import time
 from typing import Any, Optional
+
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
+
+
+_NO_SPAN = contextlib.nullcontext()   # what ``span`` gives while no profiler runs
+
+
+def span(name: str):
+    """A host range called ``name`` (``slam::<part>``) around a ``with`` block,
+    recorded while a ``torch.profiler`` session runs and nowhere else.
+
+    With no profiler active this is one flag check and a shared no-op
+    context. Under a profiler it is an operator-scope record: stamped on the
+    profiler's clock beside the operators and the device's events it
+    encloses, and, unlike ``torch.profiler.record_function`` (a user
+    annotation), with no copy of itself on the device's timeline, so a
+    reader of device events never takes it for device work."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _RecordFunctionFast(name)
 
 
 class RunLogger:

@@ -17,6 +17,7 @@ from . import geometry as geo
 from . import matching, ops
 from .config import EngineConfig
 from .containers import INVALID_ID, FrameArrays, MapState, recount_lm_obs, update_covis_for_kf
+from .instrument import span
 
 
 def _set_row(x: torch.Tensor, slot, value) -> torch.Tensor:
@@ -195,46 +196,47 @@ def triangulate_fanout(m: MapState, slot_a, neighbors, cfg: EngineConfig) -> Map
     A feature triangulated against several neighbors keeps its FIRST
     candidate, as in the reference's serial CreateNewMapPoints.
     """
-    kfs = m.kfs
-    F = kfs.uv.shape[1]
-    K = kfs.valid.shape[0]
-    L = m.lms.xyz.shape[0]
-    Nn = neighbors.shape[0]
-    Ra, ta = kfs.R[slot_a], kfs.t[slot_a]
-    uv_a, desc_a, oct_a = kfs.uv[slot_a], kfs.desc[slot_a], kfs.octave[slot_a]
-    free_a = kfs.feat_valid[slot_a] & (kfs.obs_lm[slot_a] < 0)
+    with span("slam::triangulate"):
+        kfs = m.kfs
+        F = kfs.uv.shape[1]
+        K = kfs.valid.shape[0]
+        L = m.lms.xyz.shape[0]
+        Nn = neighbors.shape[0]
+        Ra, ta = kfs.R[slot_a], kfs.t[slot_a]
+        uv_a, desc_a, oct_a = kfs.uv[slot_a], kfs.desc[slot_a], kfs.octave[slot_a]
+        free_a = kfs.feat_valid[slot_a] & (kfs.obs_lm[slot_a] < 0)
 
-    Xs, goods, jbs = [], [], []
-    for i in range(Nn):
-        nb = neighbors[i]
-        free_b = kfs.feat_valid[nb] & (kfs.obs_lm[nb] < 0)
-        X, good, jb = _tri_candidates(
-            Ra, ta, uv_a, desc_a, oct_a, free_a,
-            kfs.R[nb], kfs.t[nb], kfs.uv[nb], kfs.desc[nb], kfs.octave[nb], free_b, cfg,
-        )
-        Xs.append(X)
-        goods.append(good & (nb != slot_a))
-        jbs.append(jb)
-    Xs, goods, jbs = torch.stack(Xs), torch.stack(goods), torch.stack(jbs)
+        Xs, goods, jbs = [], [], []
+        for i in range(Nn):
+            nb = neighbors[i]
+            free_b = kfs.feat_valid[nb] & (kfs.obs_lm[nb] < 0)
+            X, good, jb = _tri_candidates(
+                Ra, ta, uv_a, desc_a, oct_a, free_a,
+                kfs.R[nb], kfs.t[nb], kfs.uv[nb], kfs.desc[nb], kfs.octave[nb], free_b, cfg,
+            )
+            Xs.append(X)
+            goods.append(good & (nb != slot_a))
+            jbs.append(jb)
+        Xs, goods, jbs = torch.stack(Xs), torch.stack(goods), torch.stack(jbs)
 
-    gi = goods.to(torch.int32)
-    keep = goods & ((torch.cumsum(gi, 0) - gi) == 0)
+        gi = goods.to(torch.int32)
+        keep = goods & ((torch.cumsum(gi, 0) - gi) == 0)
 
-    flatX = Xs.reshape(Nn * F, 3)
-    desc_rep = desc_a[None].expand(Nn, F, 8).reshape(Nn * F, 8)
-    oct_rep = oct_a[None].expand(Nn, F).reshape(Nn * F)
-    m, slot_of = alloc_landmarks(m, flatX, desc_rep, oct_rep, keep.reshape(-1), slot_a, -Ra.T @ ta, cfg)
-    can2 = (slot_of < L).reshape(Nn, F)
-    slot2 = slot_of.reshape(Nn, F)
+        flatX = Xs.reshape(Nn * F, 3)
+        desc_rep = desc_a[None].expand(Nn, F, 8).reshape(Nn * F, 8)
+        oct_rep = oct_a[None].expand(Nn, F).reshape(Nn * F)
+        m, slot_of = alloc_landmarks(m, flatX, desc_rep, oct_rep, keep.reshape(-1), slot_a, -Ra.T @ ta, cfg)
+        can2 = (slot_of < L).reshape(Nn, F)
+        slot2 = slot_of.reshape(Nn, F)
 
-    a_slot = torch.min(torch.where(can2, slot2, L), dim=0).values
-    obs_lm = m.kfs.obs_lm.clone()
-    obs_lm[slot_a] = torch.where(a_slot < L, a_slot, m.kfs.obs_lm[slot_a])
-    k_idx = torch.where(can2, neighbors[:, None].expand(Nn, F), K)
-    obs_lm = ops.scatter_set2(obs_lm, k_idx, jbs, torch.where(can2, slot2, 0).reshape(-1))
-    lms = m.lms._replace(n_obs=ops.scatter_add(m.lms.n_obs, slot_of, 2))
-    m = m._replace(kfs=m.kfs._replace(obs_lm=obs_lm), lms=lms)
-    return update_covis_for_kf(m, slot_a)
+        a_slot = torch.min(torch.where(can2, slot2, L), dim=0).values
+        obs_lm = m.kfs.obs_lm.clone()
+        obs_lm[slot_a] = torch.where(a_slot < L, a_slot, m.kfs.obs_lm[slot_a])
+        k_idx = torch.where(can2, neighbors[:, None].expand(Nn, F), K)
+        obs_lm = ops.scatter_set2(obs_lm, k_idx, jbs, torch.where(can2, slot2, 0).reshape(-1))
+        lms = m.lms._replace(n_obs=ops.scatter_add(m.lms.n_obs, slot_of, 2))
+        m = m._replace(kfs=m.kfs._replace(obs_lm=obs_lm), lms=lms)
+        return update_covis_for_kf(m, slot_a)
 
 
 def triangulate_between(m: MapState, slot_a, slot_b, cfg: EngineConfig) -> MapState:
@@ -430,39 +432,41 @@ def process_new_keyframe(m: MapState, frame: FrameArrays, R, t, lm_ids, frame_id
     ``spawn_depth``), triangulate and fuse against the top covisible
     neighbors (plus ``cfg.kf_fuse_two_hop`` of their best neighbors),
     refresh, cull."""
-    n_two_hop = cfg.kf_fuse_two_hop
-    m = insert_keyframe(m, frame, R, t, lm_ids, frame_id, timestamp, slot, parent, cfg)
-    if spawn_depth:
-        m = spawn_depth_landmarks(m, slot, cfg)
+    with span("slam::kf_insert"):
+        n_two_hop = cfg.kf_fuse_two_hop
+        m = insert_keyframe(m, frame, R, t, lm_ids, frame_id, timestamp, slot, parent, cfg)
+        if spawn_depth:
+            m = spawn_depth_landmarks(m, slot, cfg)
 
-    K = m.kfs.valid.shape[0]
-    w = torch.where(m.kfs.valid, m.covis[slot], 0).clone()
-    w[slot] = 0
-    top_w, neighbors = ops.top_k(w, n_neighbors)
-    neighbors = torch.where(top_w > 0, neighbors, slot)
+        K = m.kfs.valid.shape[0]
+        w = torch.where(m.kfs.valid, m.covis[slot], 0).clone()
+        w[slot] = 0
+        top_w, neighbors = ops.top_k(w, n_neighbors)
+        neighbors = torch.where(top_w > 0, neighbors, slot)
 
-    m = triangulate_fanout(m, slot, neighbors, cfg)
+        m = triangulate_fanout(m, slot, neighbors, cfg)
 
-    fuse_targets = neighbors
-    if n_two_hop > 0:
-        one_hop = ops.scatter_set(
-            torch.zeros((K,), dtype=torch.bool, device=w.device), torch.where(top_w > 0, neighbors, K), True
-        )
-        rows = torch.where((top_w > 0)[:, None], m.covis[neighbors], 0)
-        w2 = torch.max(rows, dim=0).values
-        w2 = torch.where(m.kfs.valid & ~one_hop, w2, 0).clone()
-        w2[slot] = 0
-        top_w2, nb2 = ops.top_k(w2, n_two_hop)
-        nb2 = torch.where(top_w2 > 0, nb2, slot)
-        fuse_targets = torch.cat([neighbors, nb2])
+        fuse_targets = neighbors
+        if n_two_hop > 0:
+            one_hop = ops.scatter_set(
+                torch.zeros((K,), dtype=torch.bool, device=w.device), torch.where(top_w > 0, neighbors, K), True
+            )
+            rows = torch.where((top_w > 0)[:, None], m.covis[neighbors], 0)
+            w2 = torch.max(rows, dim=0).values
+            w2 = torch.where(m.kfs.valid & ~one_hop, w2, 0).clone()
+            w2[slot] = 0
+            top_w2, nb2 = ops.top_k(w2, n_two_hop)
+            nb2 = torch.where(top_w2 > 0, nb2, slot)
+            fuse_targets = torch.cat([neighbors, nb2])
 
-    for nb in fuse_targets.tolist():
-        if nb != slot:
-            m = fuse_landmarks_into_kf(m, slot, nb, cfg, recount=False)
-            m = fuse_landmarks_into_kf(m, nb, slot, cfg, recount=False)
-    m = recount_lm_obs(m)
-    m = update_covis_for_kf(m, slot)
-    m = refresh_landmark_descriptors(m, slot, cfg)
-    m = refresh_landmark_geometry(m, slot, cfg)
-    m = cull_landmarks(m, slot, cfg)
-    return cull_keyframes(m, slot, cfg)
+        with span("slam::fuse"):
+            for nb in fuse_targets.tolist():
+                if nb != slot:
+                    m = fuse_landmarks_into_kf(m, slot, nb, cfg, recount=False)
+                    m = fuse_landmarks_into_kf(m, nb, slot, cfg, recount=False)
+        m = recount_lm_obs(m)
+        m = update_covis_for_kf(m, slot)
+        m = refresh_landmark_descriptors(m, slot, cfg)
+        m = refresh_landmark_geometry(m, slot, cfg)
+        m = cull_landmarks(m, slot, cfg)
+        return cull_keyframes(m, slot, cfg)

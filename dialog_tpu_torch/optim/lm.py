@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from ..instrument import span
+
 
 def inv3x3(A: torch.Tensor) -> torch.Tensor:
     """Closed-form adjugate inverse of batched 3x3 matrices (a determinant
@@ -136,13 +138,14 @@ def lm_loop(cost_and_system, retract, x0, iters: int, lam0: float = 1e-3):
     dev = H.device
     lam = torch.full((), lam0, dtype=torch.float32, device=dev)   # no host copy (ops.scalar)
     for _ in range(iters):
-        dx = solve_damped(H, g, lam)
-        x_new = retract(x, dx)
-        new_cost, H_new, g_new = cost_and_system(x_new)
-        accept = (new_cost < cost) & all_finite(*x_new)
-        x = tuple(torch.where(accept, a, b) for a, b in zip(x_new, x))
-        H = torch.where(accept, H_new, H)
-        g = torch.where(accept, g_new, g)
-        lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-9, 1e6)
-        cost = torch.where(accept, new_cost, cost)
+        with span("slam::lm_iter"):
+            dx = solve_damped(H, g, lam)
+            x_new = retract(x, dx)
+            new_cost, H_new, g_new = cost_and_system(x_new)
+            accept = (new_cost < cost) & all_finite(*x_new)
+            x = tuple(torch.where(accept, a, b) for a, b in zip(x_new, x))
+            H = torch.where(accept, H_new, H)
+            g = torch.where(accept, g_new, g)
+            lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-9, 1e6)
+            cost = torch.where(accept, new_cost, cost)
     return x, cost

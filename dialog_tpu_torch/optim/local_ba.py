@@ -23,6 +23,7 @@ from .. import ops
 from ..config import EngineConfig
 from ..containers import INVALID_ID, MapState
 from ..distributed import all_sum
+from ..instrument import span
 from ..kernels import schur as schur_kernel
 from .lm import all_finite, huber_weight
 
@@ -292,6 +293,7 @@ def write_back(m: MapState, prob: BAProblem, R, t, xyz, cfg: EngineConfig,
 
 def local_bundle_adjustment(m: MapState, center_kf, cfg: EngineConfig, iters: int = 10) -> MapState:
     """Full local BA pass: extract window -> solve -> write back."""
-    prob = build_problem(m, center_kf, cfg)
-    R, t, xyz, _ = solve_ba(prob, cfg, iters=iters, chi2_th=cfg.chi2_mono)
-    return write_back(m, prob, R, t, xyz, cfg, chi2_th=cfg.chi2_mono)
+    with span("slam::local_ba"):
+        prob = build_problem(m, center_kf, cfg)
+        R, t, xyz, _ = solve_ba(prob, cfg, iters=iters, chi2_th=cfg.chi2_mono)
+        return write_back(m, prob, R, t, xyz, cfg, chi2_th=cfg.chi2_mono)

@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from .. import geometry as geo
+from ..instrument import span
 from .lm import huber_weight, lm_loop
 
 
@@ -52,26 +53,27 @@ def pose_optimization(R0, t0, X, uv, inv_sigma2, valid, fx, fy, cx, cy,
                       u_right=None, bf: float = 0.0, use_stereo: bool = False) -> PoseOptResult:
     """Optimize T_cw against fixed 3D points; returns pose + inlier set.
     ``u_right`` f32[N] (< 0: monocular observation) is read with ``use_stereo``."""
-    if u_right is None:
-        u_right = torch.full(X.shape[:1], -1.0, dtype=torch.float32, device=X.device)
-    R, t, inlier = geo.orthogonalize(R0), t0, valid
-    cost = torch.zeros((), dtype=torch.float32, device=R0.device)
-    for _ in range(rounds):
-        R = geo.orthogonalize(R)
-        base = inlier
+    with span("slam::pose_opt"):
+        if u_right is None:
+            u_right = torch.full(X.shape[:1], -1.0, dtype=torch.float32, device=X.device)
+        R, t, inlier = geo.orthogonalize(R0), t0, valid
+        cost = torch.zeros((), dtype=torch.float32, device=R0.device)
+        for _ in range(rounds):
+            R = geo.orthogonalize(R)
+            base = inlier
 
-        def cas(x, base=base):
-            return _system(x[0], x[1], X, uv, u_right, inv_sigma2, base, fx, fy, cx, cy, bf, chi2_th,
-                           use_stereo)
+            def cas(x, base=base):
+                return _system(x[0], x[1], X, uv, u_right, inv_sigma2, base, fx, fy, cx, cy, bf, chi2_th,
+                               use_stereo)
 
-        def retract(x, dx):
-            return geo.se3_retract(x[0], x[1], dx)
+            def retract(x, dx):
+                return geo.se3_retract(x[0], x[1], dx)
 
-        (R, t), cost = lm_loop(cas, retract, (R, t), iters)
-        r, _, z = _residual_rows(R, t, X, uv, u_right, fx, fy, cx, cy, bf, use_stereo)
-        chi2 = torch.sum(r * r, -1) * inv_sigma2
-        inlier = valid & (z > 1e-3) & (chi2 <= chi2_th)
-    return PoseOptResult(
-        R=R, t=t, inlier=inlier,
-        n_inliers=torch.sum(inlier.to(torch.int32)), cost=cost,
-    )
+            (R, t), cost = lm_loop(cas, retract, (R, t), iters)
+            r, _, z = _residual_rows(R, t, X, uv, u_right, fx, fy, cx, cy, bf, use_stereo)
+            chi2 = torch.sum(r * r, -1) * inv_sigma2
+            inlier = valid & (z > 1e-3) & (chi2 <= chi2_th)
+        return PoseOptResult(
+            R=R, t=t, inlier=inlier,
+            n_inliers=torch.sum(inlier.to(torch.int32)), cost=cost,
+        )

@@ -20,17 +20,17 @@ With ``--batch`` (``mono`` and ``stereo``) the window goes through the batched
 entries instead, ``frontend.extract_features_batch`` or
 ``stereo.extract_and_match_stereo_batch`` and ``Engine.track_batch`` at
 ``BATCH`` frames, flushed at the window's end; the frames before the window
-go per frame as without it, and the phases timed are the batched ones.
+go per frame as without it.
 
-Three runs of the chosen workload, each on a fresh engine:
+Two runs of the chosen workload, each on a fresh engine:
 
 1. plain: the window's wall time on the host clock, nothing added;
-2. phases: the engine's tensor phases (feature extraction, stereo matching
-   for ``stereo``, the tracking step, the keyframe pipeline, local BA) timed
-   on the host clock, with the device synchronised at every phase boundary;
-3. profiled: the window under ``torch.profiler``, which counts kernel
-   launches, stream synchronisations and ``.item()`` reads, and gives the
-   device's busy time as the union of its kernel, copy and set intervals.
+2. profiled: the window under ``torch.profiler``, which counts kernel
+   launches, stream synchronisations and ``.item()`` reads, gives the
+   device's busy time as the union of its kernel, copy and set intervals,
+   the host time of each of the port's spans (``instrument.span``, named
+   ``slam::<part>``: its phases) and the device's idle time by the span
+   open in each gap.
 
 The device's idle share is given against both the profiled window's wall
 time and the plain run's: the profiler slows the host, not the device.
@@ -40,6 +40,7 @@ Prints one JSON object as the last line, and writes it to ``--out``.
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import pathlib
 import subprocess
@@ -64,6 +65,8 @@ LOOP_NOISE_PX, LOOP_DESC_FLIPS = 0.5, 6
 # pipelined path (mapping up to 3 frames behind) at frame 32 (loop --pipelined)
 LOOP_BATCH_PERIOD = 400
 SYNC_ROWS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "aten::item", "cudaMemcpyAsync")
+SPAN_PREFIX = "slam::"      # the port's spans (``instrument.span``)
+OUTSIDE_SPANS = "outside the port's spans"
 
 
 def tum_mono_config():
@@ -223,42 +226,6 @@ def plain_run(cfg, frames, dev, method="track_image", fps=30.0, batch=False) -> 
     return _window(eng, method, frames, fps, batch)
 
 
-def phase_run(cfg, frames, dev, method="track_image", fps=30.0, batch=False) -> dict:
-    """Window wall time and each phase's synchronised host time."""
-    from . import frontend, mapping, stereo, system, tracking
-
-    spent: dict[str, float] = {}
-    originals = [(system, "extract_features"), (system, "stereo_match_frames"), (tracking, "fused_track_step"),
-                 (mapping, "process_new_keyframe"), (system, "local_bundle_adjustment")]
-    if batch:
-        # the batched stereo frontend holds its extraction: the two are timed apart
-        originals = [(frontend, "extract_features_batch"), (stereo, "stereo_match_frames"),
-                     (tracking, "fused_track_multi"), (system.Engine, "_resolve_batch")] + originals[3:]
-    saved = [getattr(mod, name) for mod, name in originals]
-
-    def timed(name, fn):
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
-            return out
-        return wrapper
-
-    eng = system.Engine(cfg, device=dev)
-    track_frames(eng, method, frames, 0, FPS_FIRST, fps)
-    kf0 = eng.kf_count
-    try:
-        for (mod, name), fn in zip(originals, saved):
-            setattr(mod, name, timed(name, fn))
-        total = _window(eng, method, frames, fps, batch)
-    finally:
-        for (mod, name), fn in zip(originals, saved):
-            setattr(mod, name, fn)
-    return {"total_s": total, "keyframes_in_window": eng.kf_count - kf0, **spent}
-
-
 # the names torch.profiler leaves out of its event list (``torch.autograd.profiler._filter_name``)
 _FILTERED = frozenset({"[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
                        "profiler::_record_function_enter_new", "profiler::_record_function_exit", "aten::is_leaf",
@@ -282,17 +249,42 @@ def _busy_seconds(events) -> float:
                                  if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
+def idle_by_span(device_spans, ranges: dict) -> dict:
+    """The device's idle seconds between its events (``device_spans``, (start,
+    end) ns), each gap given to the innermost of the port's spans open at its
+    midpoint, by the rule of the benchmark's breakdown: of the spans open
+    there, the name whose ranges (``ranges``: name -> sorted (start, end) ns,
+    none nested in one of its own name) take the least time in all.
+    ``OUTSIDE_SPANS`` takes the gaps where none is open."""
+    order = sorted(ranges, key=lambda k: sum(e - s for s, e in ranges[k]))
+    starts = {k: [s for s, _ in ranges[k]] for k in order}
+
+    def open_at(k, t):
+        i = bisect.bisect_right(starts[k], t) - 1
+        return i >= 0 and ranges[k][i][1] >= t
+
+    gaps, end = {}, None
+    for s, e in sorted(device_spans):
+        if end is not None and s > end:
+            who = next((k for k in order if open_at(k, (s + end) // 2)), OUTSIDE_SPANS)
+            gaps[who] = gaps.get(who, 0.0) + 1e-9 * (s - end)
+        end = e if end is None else max(end, e)
+    return dict(sorted(gaps.items(), key=lambda kv: -kv[1]))
+
+
 def read_profile(prof) -> dict:
-    """The device's busy seconds, its kernels (copies and sets apart), and per
+    """The device's busy seconds, its kernels (copies and sets apart), per
     name the events and their inclusive nanoseconds on the device and on the
-    host (operators and runtime calls), from the profiler's raw event
-    records under the filters of ``prof.events()``, but without the Python
-    event tree that it builds: for the half million events of a 16-frame
-    window that tree takes about a minute of the host's time. An operator
-    nested in one of the same name (``aten::sum`` in ``aten::sum``), which the
-    event list folds into one, counts at each level."""
+    host (operators, runtime calls and the port's spans), and the device's
+    idle seconds by the port's span open in each gap (``idle_by_span``),
+    from the profiler's raw event records under the filters of
+    ``prof.events()``, but without the Python event tree that it builds: for
+    the half million events of a 16-frame window that tree takes about a
+    minute of the host's time. An operator nested in one of the same name
+    (``aten::sum`` in ``aten::sum``), which the event list folds into one,
+    counts at each level."""
     cuda = torch.autograd.DeviceType.CUDA
-    spans, kernels, device, host = [], 0, {}, {}
+    spans, kernels, device, host, ranges = [], 0, {}, {}, {}
     for e in prof.profiler.kineto_results.events():
         name = e.name()
         if name in _FILTERED or getattr(e, "is_hidden_event", lambda: False)():
@@ -302,16 +294,21 @@ def read_profile(prof) -> dict:
             spans.append((e.start_ns(), e.end_ns()))
             kernels += not name.startswith(("Memcpy", "Memset"))
             table = device
+        elif name.startswith(SPAN_PREFIX):
+            ranges.setdefault(name, []).append((e.start_ns(), e.start_ns() + e.duration_ns()))
         n, ns = table.get(name, (0, 0))
         table[name] = (n + 1, ns + e.duration_ns())
-    return {"device_busy_s": 1e-9 * _union_seconds(spans), "device_kernels": kernels, "device": device, "host": host}
+    return {"device_busy_s": 1e-9 * _union_seconds(spans), "device_kernels": kernels, "device": device, "host": host,
+            "idle_by_span": idle_by_span(spans, {k: sorted(v) for k, v in ranges.items()})}
 
 
 def profiled(fn) -> dict:
     """``fn()`` (which returns its wall seconds) under ``torch.profiler``:
-    the device's busy time, its kernels, the host's sync rows and the top
-    rows by name: the device's kernels and copies, the host's operators and
-    runtime calls, each with its events and inclusive ms (``read_profile``)."""
+    the device's busy time, its kernels, the host's sync rows, the top rows
+    by name (the device's kernels and copies, the host's operators and
+    runtime calls, each with its events and inclusive ms), the port's spans
+    as its ``phases`` (name -> [events, host ms]) and the device's idle
+    seconds by span (``read_profile``)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -328,6 +325,8 @@ def profiled(fn) -> dict:
         "syncs": {k: r["host"][k][0] for k in SYNC_ROWS if k in r["host"]},
         "top_device_ms": top(r["device"]),
         "top_host_ms": top(r["host"]),
+        "phases": {k: [n, ns / 1e6] for k, (n, ns) in sorted(r["host"].items()) if k.startswith(SPAN_PREFIX)},
+        "idle_by_span": r["idle_by_span"],
     }
 
 
@@ -360,13 +359,12 @@ def main() -> int:
     cfg = make_cfg()
     _, frames = make_frames(cfg)
     plain_s = plain_run(cfg, frames, dev, method, fps, args.batch)
-    phases = phase_run(cfg, frames, dev, method, fps, args.batch)
     prof = profiled_run(cfg, frames, dev, method, fps, args.batch)
     n = len(frames) - FPS_FIRST
     out = {
         "card": card, "config": args.config, "batch": BATCH if args.batch else 0, "frames": n,
         "plain_wall_s": plain_s, "frames_per_s": n / plain_s,
-        "phases": phases, "profiled": prof,
+        "profiled": prof,
         "idle_share_profiled": 1.0 - prof["device_busy_s"] / prof["wall_s"],
         "idle_share_plain": 1.0 - prof["device_busy_s"] / plain_s,
         "kernels_per_frame": prof["device_kernels"] / n,

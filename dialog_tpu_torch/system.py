@@ -62,6 +62,7 @@ from .containers import (INVALID_ID, FrameArrays, MapMeta, MapState, empty_map, 
                          pack_map_meta, save_map)
 from .frontend import extract_features
 from .init2view import initialize_two_view
+from .instrument import span
 from .loopclosing import LoopCloser
 from .optim.global_ba import (GBASnapshot, build_global_problem, fold_gba_result, global_bundle_adjustment,
                                shard_problem)
@@ -122,9 +123,15 @@ class Engine:
         # capacity events: landmarks the free list could not take, keyframes
         # with no free slot, global-BA observations cut at max_obs_per_lm;
         # each also goes to ``logger`` (an instrument.RunLogger) when one is set.
-        # Also the global BA runs started and the relocalizations that succeeded.
+        # Also the global BA runs started, the relocalizations attempted (with
+        # a vocabulary) and those that succeeded, the batches that lost a frame,
+        # the frames recorded LOST on any path, the frames the batched entry
+        # tracked one by one, each keyframe that tracking inserted under the
+        # first trigger that took it (weak, starving, stale), and the
+        # vocabulary's trainings.
         self.stats = {"lm_dropped": 0, "kf_slot_full": 0, "gba_obs_dropped": 0, "gba_runs": 0,
-                      "relocalizations": 0}
+                      "relocalizations": 0, "reloc_attempts": 0, "lost_batched": 0, "lost_frames": 0,
+                      "retracked": 0, "kf_weak": 0, "kf_starving": 0, "kf_stale": 0, "vocab_trains": 0}
         self.logger = None
         self._init_frame: Optional[FrameArrays] = None
         self._init_ts = 0.0
@@ -240,9 +247,10 @@ class Engine:
         """Wait for the pull's event, and for nothing else; the result is a
         copy, so the pinned block goes back to its pool."""
         host, done = pull
-        if done is not None:
-            done.synchronize()
-        return np.array(host.numpy())
+        with span("slam::pull_wait"):
+            if done is not None:
+                done.synchronize()
+            return np.array(host.numpy())
 
     def track_features_async(self, frame: FrameArrays, timestamp: float):
         """Pipelined entry: queue this frame's device step and resolve the
@@ -279,112 +287,126 @@ class Engine:
         the map as it stands, with one host pull for the batch. Results
         resolve one batch behind. Returns the records this call resolved
         (possibly none)."""
-        B = len(timestamps)
-        if self.state == OK:
-            # an in-flight global BA advances by one chunk; its device work
-            # queues between the batches' dispatches
-            self._gba_tick()
-        if self.state != OK or self._last_lm_ids is None:
-            # per frame until healthy; the next batch re-enters batched mode
-            self.flush()
-            return [self.track_features(FrameArrays(*[x[b] for x in frames]), float(timestamps[b]))
-                    for b in range(B)]
-        # resolve the in-flight batch BEFORE queueing this one: its pull was
-        # started a batch ago, and any keyframe the resolve creates lands in
-        # the map this batch tracks against
+        with span("slam::track_batch"):
+            B = len(timestamps)
+            if self.state == OK:
+                # an in-flight global BA advances by one chunk; its device work
+                # queues between the batches' dispatches
+                self._gba_tick()
+            if self.state != OK or self._last_lm_ids is None:
+                # per frame until healthy; the next batch re-enters batched mode
+                self.flush()
+                return self._retrack([(FrameArrays(*[x[b] for x in frames]), float(timestamps[b]), self.frame_id + b)
+                                      for b in range(B)])
+            # resolve the in-flight batch BEFORE queueing this one: its pull was
+            # started a batch ago, and any keyframe the resolve creates lands in
+            # the map this batch tracks against
+            out = []
+            if self._pending_b:
+                out = self._resolve_batch()
+                if self.state != OK:
+                    # recovery: this batch goes through the per-frame path (relocalization)
+                    return out + self._retrack([(FrameArrays(*[x[b] for x in frames]), float(timestamps[b]),
+                                                 self.frame_id + b) for b in range(B)])
+            cfg = self.cfg
+            dev = self._chain_state()
+            R_l, t_l, R_p, t_p, lm_l, packed, counts = tracking.fused_track_multi(
+                self.m, dev["lm_ids"], frames, dev["R"], dev["t"], dev["R_prev"], dev["t_prev"], dev["has_vel"],
+                self.ref_kf, cfg, use_stereo=cfg.sensor != Sensor.MONOCULAR and cfg.bf > 0,
+            )
+            self.m = tracking.apply_track_counts(self.m, counts)
+            self._dev_state = {"R": R_l, "t": t_l, "R_prev": R_p, "t_prev": t_p, "lm_ids": lm_l,
+                               "has_vel": torch.ones((), dtype=torch.bool, device=self.device)}
+            fids = list(range(self.frame_id, self.frame_id + B))
+            self.frame_id += B
+            # the loop detection dispatched at the last keyframe rides this
+            # batch's pull and is evaluated when the batch resolves
+            det = self._loop.take_pending() if self.loop_closing_enabled else None
+            pull = self._start_pull(packed, det)
+            det = None if det is None else (det[0], det[3])
+            self._pending_b.append((frames, [float(t) for t in timestamps], fids, self.ref_kf, lm_l, pull, det))
+            return out
+
+    def _retrack(self, items) -> list[FrameRecord]:
+        """Frames that the batched entry sends through the per-frame path, as
+        (frame, timestamp, frame id), in order; one ``slam::retrack`` span
+        over the stretch."""
+        self.stats["retracked"] += len(items)
         out = []
-        if self._pending_b:
-            out = self._resolve_batch()
-            if self.state != OK:
-                # recovery: this batch goes through the per-frame path (relocalization)
-                out += [self.track_features(FrameArrays(*[x[b] for x in frames]), float(timestamps[b]))
-                        for b in range(B)]
-                return out
-        cfg = self.cfg
-        dev = self._chain_state()
-        R_l, t_l, R_p, t_p, lm_l, packed, counts = tracking.fused_track_multi(
-            self.m, dev["lm_ids"], frames, dev["R"], dev["t"], dev["R_prev"], dev["t_prev"], dev["has_vel"],
-            self.ref_kf, cfg, use_stereo=cfg.sensor != Sensor.MONOCULAR and cfg.bf > 0,
-        )
-        self.m = tracking.apply_track_counts(self.m, counts)
-        self._dev_state = {"R": R_l, "t": t_l, "R_prev": R_p, "t_prev": t_p, "lm_ids": lm_l,
-                           "has_vel": torch.ones((), dtype=torch.bool, device=self.device)}
-        fids = list(range(self.frame_id, self.frame_id + B))
-        self.frame_id += B
-        # the loop detection dispatched at the last keyframe rides this
-        # batch's pull and is evaluated when the batch resolves
-        det = self._loop.take_pending() if self.loop_closing_enabled else None
-        pull = self._start_pull(packed, det)
-        det = None if det is None else (det[0], det[3])
-        self._pending_b.append((frames, [float(t) for t in timestamps], fids, self.ref_kf, lm_l, pull, det))
+        with span("slam::retrack"):
+            for frame, ts, fid in items:
+                self.frame_id = fid
+                out.append(self.track_features(frame, float(ts)))
         return out
 
     def _resolve_batch(self) -> list[FrameRecord]:
-        frames, ts_list, fids, ref_launch, lm_l, pull, det = self._pending_b.pop(0)
-        cfg = self.cfg
-        B = len(ts_list)
-        K = cfg.max_keyframes
-        V = self._finish_pull(pull)                  # ONE pull per batch
-        P = V[: B * 26].reshape(B, 26)
-        det_at = B * 26 + map_meta_len(K)           # the detection's vector [5K] and neighbour matrix [K, K]
-        out = []
-        lost_at = None
-        for b in range(B):
-            p = P[b]
-            n_tracked = int(p[24])
-            if n_tracked < cfg.min_inliers_local:
-                lost_at = b
-                break
-            rec = FrameRecord(
-                frame_id=fids[b], timestamp=ts_list[b], R=p[:9].reshape(3, 3), t=p[9:12], state=OK,
-                n_tracked=n_tracked, ref_kf=ref_launch, R_rel=p[12:21].reshape(3, 3), t_rel=p[21:24],
-            )
-            self._append_record(rec)
-            out.append(rec)
-            self._last_R, self._last_t = rec.R, rec.t
-        # the keyframe bookkeeping snapshot taken when this batch was queued
-        self._observe_kf_meta(MapMeta(V[B * 26 :], cfg.max_keyframes))
-        if lost_at is not None:
-            # tracking failed mid-batch: the rest of this batch and every
-            # deeper batch in flight were computed against a state that no
-            # longer holds. Re-track them frame by frame: state LOST sends
-            # each through relocalization.
-            retrack = [(FrameArrays(*[x[b] for x in frames]), ts_list[b], fids[b]) for b in range(lost_at, B)]
-            for fr2, ts2, fid2, *_ in self._pending_b:
-                retrack += [(FrameArrays(*[x[b] for x in fr2]), ts2[b], fid2[b]) for b in range(len(ts2))]
-            self._pending_b.clear()
-            self._dev_state = None
-            self.state = LOST
-            self._vel = None
-            fid_after = self.frame_id
-            for fb, ts_b, fid_b in retrack:
-                self.frame_id = fid_b
-                out.append(self.track_features(fb, float(ts_b)))
-            self.frame_id = fid_after
+        with span("slam::resolve_batch"):
+            frames, ts_list, fids, ref_launch, lm_l, pull, det = self._pending_b.pop(0)
+            cfg = self.cfg
+            B = len(ts_list)
+            K = cfg.max_keyframes
+            V = self._finish_pull(pull)                  # ONE pull per batch
+            P = V[: B * 26].reshape(B, 26)
+            det_at = B * 26 + map_meta_len(K)           # the detection's vector [5K] and neighbour matrix [K, K]
+            out = []
+            lost_at = None
+            for b in range(B):
+                p = P[b]
+                n_tracked = int(p[24])
+                if n_tracked < cfg.min_inliers_local:
+                    lost_at = b
+                    break
+                rec = FrameRecord(
+                    frame_id=fids[b], timestamp=ts_list[b], R=p[:9].reshape(3, 3), t=p[9:12], state=OK,
+                    n_tracked=n_tracked, ref_kf=ref_launch, R_rel=p[12:21].reshape(3, 3), t_rel=p[21:24],
+                )
+                self._append_record(rec)
+                out.append(rec)
+                self._last_R, self._last_t = rec.R, rec.t
+            # the keyframe bookkeeping snapshot taken when this batch was queued
+            self._observe_kf_meta(MapMeta(V[B * 26 :], cfg.max_keyframes))
+            if lost_at is not None:
+                # tracking failed mid-batch: the rest of this batch and every
+                # deeper batch in flight were computed against a state that no
+                # longer holds. Re-track them frame by frame: state LOST sends
+                # each through relocalization.
+                self.stats["lost_batched"] += 1
+                retrack = [(FrameArrays(*[x[b] for x in frames]), ts_list[b], fids[b]) for b in range(lost_at, B)]
+                for fr2, ts2, fid2, *_ in self._pending_b:
+                    retrack += [(FrameArrays(*[x[b] for x in fr2]), ts2[b], fid2[b]) for b in range(len(ts2))]
+                self._pending_b.clear()
+                self._dev_state = None
+                self.state = LOST
+                self._vel = None
+                fid_after = self.frame_id
+                out += self._retrack(retrack)
+                self.frame_id = fid_after
+                return out
+            # keyframe decision: the batch's LAST frame is the only candidate (its
+            # pose and its associations lm_l belong together); one keyframe per
+            # batch keeps mapping bounded
+            n_last = int(P[B - 1, 24])
+            self._last_lm_ids = lm_l
+            self._last_frame = None
+            self.state = OK
+            slot = None
+            if self._need_keyframe(n_last, fid=fids[B - 1]):
+                slot = self._alloc_kf_slot()
+            if slot is not None:
+                self._insert_keyframe(FrameArrays(*[x[B - 1] for x in frames]), ts_list[B - 1], fids[B - 1],
+                                      self._tensor(P[B - 1, :9].reshape(3, 3)), self._tensor(P[B - 1, 9:12]), lm_l,
+                                      slot, n_last)
+                # dispatch only: the detection rides the next batch's pull
+                self._detect_and_close_loop(slot, dispatch_only=True)
+            # the detection dispatched at an earlier keyframe, pulled with this batch
+            if det is not None:
+                det_kf, stamp = det
+                vec = V[det_at : det_at + 5 * K]
+                neigh = V[det_at + 5 * K : det_at + 5 * K + K * K].reshape(K, K).astype(np.uint8)
+                with span("slam::loop_detect"):
+                    cands = self._loop.evaluate(det_kf, vec, neigh, stamp=stamp)
+                self._close_loop_from(det_kf, cands)
             return out
-        # keyframe decision: the batch's LAST frame is the only candidate (its
-        # pose and its associations lm_l belong together); one keyframe per
-        # batch keeps mapping bounded
-        n_last = int(P[B - 1, 24])
-        self._last_lm_ids = lm_l
-        self._last_frame = None
-        self.state = OK
-        slot = None
-        if self._need_keyframe(n_last, fid=fids[B - 1]):
-            slot = self._alloc_kf_slot()
-        if slot is not None:
-            self._insert_keyframe(FrameArrays(*[x[B - 1] for x in frames]), ts_list[B - 1], fids[B - 1],
-                                  self._tensor(P[B - 1, :9].reshape(3, 3)), self._tensor(P[B - 1, 9:12]), lm_l,
-                                  slot, n_last)
-            # dispatch only: the detection rides the next batch's pull
-            self._detect_and_close_loop(slot, dispatch_only=True)
-        # the detection dispatched at an earlier keyframe, pulled with this batch
-        if det is not None:
-            det_kf, stamp = det
-            vec = V[det_at : det_at + 5 * K]
-            neigh = V[det_at + 5 * K : det_at + 5 * K + K * K].reshape(K, K).astype(np.uint8)
-            self._close_loop_from(det_kf, self._loop.evaluate(det_kf, vec, neigh, stamp=stamp))
-        return out
 
     def shutdown(self) -> None:
         """Drain all in-flight work; the engine remains usable afterwards."""
@@ -445,19 +467,20 @@ class Engine:
         loops (``_detect_and_close_loop``) where the reference does: the
         per-frame entry after taking up the refined pose, the batched one
         dispatch only."""
-        cfg = self.cfg
-        self.m = mapping.process_new_keyframe(
-            self.m, frame, R, t, lm_ids, fid, ts, slot, self.ref_kf, cfg,
-            spawn_depth=cfg.sensor != Sensor.MONOCULAR, n_neighbors=cfg.kf_tri_neighbors,
-        )
-        if self.kf_count >= 2:
-            self.m = local_bundle_adjustment(self.m, slot, cfg, iters=cfg.local_ba_iters)
-        self.ref_kf = slot
-        self.kf_count += 1
-        self.last_kf_frame_id = fid
-        self.last_kf_tracked = n_tracked
-        self._ensure_vocab()
-        self._update_bow_row(slot)
+        with span("slam::keyframe"):
+            cfg = self.cfg
+            self.m = mapping.process_new_keyframe(
+                self.m, frame, R, t, lm_ids, fid, ts, slot, self.ref_kf, cfg,
+                spawn_depth=cfg.sensor != Sensor.MONOCULAR, n_neighbors=cfg.kf_tri_neighbors,
+            )
+            if self.kf_count >= 2:
+                self.m = local_bundle_adjustment(self.m, slot, cfg, iters=cfg.local_ba_iters)
+            self.ref_kf = slot
+            self.kf_count += 1
+            self.last_kf_frame_id = fid
+            self.last_kf_tracked = n_tracked
+            self._ensure_vocab()
+            self._update_bow_row(slot)
 
     def final_poses(self) -> list[tuple[np.ndarray, np.ndarray]]:
         """Per-frame world->camera poses composed against the current map."""
@@ -654,6 +677,8 @@ class Engine:
 
     def _append_record(self, rec: FrameRecord) -> None:
         self.trajectory.append(rec)
+        if rec.state == LOST:
+            self.stats["lost_frames"] += 1
         if rec.ref_kf >= 0:
             self._recs_by_ref.setdefault(rec.ref_kf, []).append(rec)
 
@@ -909,29 +934,32 @@ class Engine:
             return
         if self._vocab is not None and self.kf_count < 2 * max(self._vocab_trained_kfs, 1):
             return
-        kfs = self.m.kfs
-        K, F = kfs.obs_lm.shape
-        desc = kfs.desc.reshape(K * F, 8)
-        feat_ok = kfs.feat_valid & kfs.valid[:, None]
-        valid = feat_ok.reshape(K * F)
-        W = self.cfg.vocab_words
-        init = _vocab.draw_init_words(desc, valid, W, self._gen) if self._vocab is None else self._vocab.words
-        vocab = _vocab.train_vocab(desc, valid, init, n_words=W, iters=4)
-        if W >= 8192:
-            # large codebooks get the two-level quantizer
-            vocab = _vocab.build_two_level(vocab, n_coarse=max(64, int(np.sqrt(W))))
-        self._vocab_trained_kfs = self.kf_count
-        # invalid slots quantize to the sentinel word and fall out of the counts
-        wid = _vocab.quantize(vocab, desc, valid)
-        doc_ids = torch.arange(K, dtype=torch.int32, device=desc.device).repeat_interleave(F)
-        self._vocab = _vocab.compute_idf(vocab, wid, doc_ids, K, n_live=kfs.valid.sum())
-        self._bow_db = _vocab.bow_db_rows(self._vocab, kfs.desc, feat_ok)
+        self.stats["vocab_trains"] += 1
+        with span("slam::vocab_train"):
+            kfs = self.m.kfs
+            K, F = kfs.obs_lm.shape
+            desc = kfs.desc.reshape(K * F, 8)
+            feat_ok = kfs.feat_valid & kfs.valid[:, None]
+            valid = feat_ok.reshape(K * F)
+            W = self.cfg.vocab_words
+            init = _vocab.draw_init_words(desc, valid, W, self._gen) if self._vocab is None else self._vocab.words
+            vocab = _vocab.train_vocab(desc, valid, init, n_words=W, iters=4)
+            if W >= 8192:
+                # large codebooks get the two-level quantizer
+                vocab = _vocab.build_two_level(vocab, n_coarse=max(64, int(np.sqrt(W))))
+            self._vocab_trained_kfs = self.kf_count
+            # invalid slots quantize to the sentinel word and fall out of the counts
+            wid = _vocab.quantize(vocab, desc, valid)
+            doc_ids = torch.arange(K, dtype=torch.int32, device=desc.device).repeat_interleave(F)
+            self._vocab = _vocab.compute_idf(vocab, wid, doc_ids, K, n_live=kfs.valid.sum())
+            self._bow_db = _vocab.bow_db_rows(self._vocab, kfs.desc, feat_ok)
 
     def _update_bow_row(self, slot: int) -> None:
         if self._vocab is None:
             return
-        kfs = self.m.kfs
-        self._bow_db[slot] = _vocab.bow_vector(self._vocab, kfs.desc[slot], kfs.feat_valid[slot])
+        with span("slam::bow_row"):
+            kfs = self.m.kfs
+            self._bow_db[slot] = _vocab.bow_vector(self._vocab, kfs.desc[slot], kfs.feat_valid[slot])
 
     def _try_relocalize(self, frame: FrameArrays, ts: float) -> Optional[FrameRecord]:
         """BoW candidates -> PnP RANSAC -> pose refinement (reference:
@@ -942,59 +970,61 @@ class Engine:
         self._ensure_vocab()
         if self._vocab is None:
             return None
-        cfg = self.cfg
-        q = _vocab.bow_vector(self._vocab, frame.desc, frame.valid)
-        scores = torch.where(self.m.kfs.valid, _vocab.bow_l1_scores(q, self._bow_db), -1.0)
-        common = _host((self._bow_db > 0).to(torch.float32) @ (q > 0).to(torch.float32)).copy()
-        scores = _host(scores)
-        valid = _host(self.m.kfs.valid)
-        common[~valid] = 0.0
-        cand_mask = valid & (scores > 0.0)
-        if cand_mask.any():
-            max_cw = common[cand_mask].max()
-            if max_cw > 0:
-                cand_mask &= common >= 0.8 * max_cw
-        cands = np.nonzero(cand_mask)[0]
-        if len(cands) > 1:
-            covis = _host(self.m.covis)        # a blocking read; relocalization is rare
-            acc = np.empty(len(cands), np.float32)
-            best_member = np.empty(len(cands), np.int64)
-            for i, c in enumerate(cands):
-                group = (covis[int(c)] > 0) & cand_mask
-                group[int(c)] = True
-                members = np.nonzero(group)[0]
-                acc[i] = scores[members].sum()
-                best_member[i] = members[np.argmax(scores[members])]
-            best = np.unique(best_member[acc >= 0.75 * acc.max()])
-            order = [int(c) for c in best[np.argsort(-scores[best])]][:3]
-        else:
-            order = [int(c) for c in cands]
-        for cand in order:
-            if float(scores[cand]) <= 0.0:
-                break
-            lm_ids, n = tracking.match_reference_kf(self.m, cand, frame, cfg)
-            if int(n) < 15:
-                continue
-            X, uv, inv_s2, ok = tracking.gather_track_problem(self.m, frame, lm_ids, cfg)
-            pnp = _pnp.solve_pnp_ransac(X, uv, ok, cfg.fx, cfg.fy, cfg.cx, cfg.cy,
-                                        _pnp.draw_pnp_sets(ok, cfg.pnp_ransac_iters, self._gen))
-            if not bool(pnp.success):
-                continue
-            res = pose_optimization(pnp.R, pnp.t, X, uv, inv_s2, ok, cfg.fx, cfg.fy, cfg.cx, cfg.cy,
-                                    chi2_th=cfg.chi2_mono)
-            n_inl = int(res.n_inliers)
-            if n_inl < cfg.reloc_min_inliers:
-                continue
-            self.state = OK
-            self.ref_kf = cand
-            self._last_R = _host(res.R)
-            self._last_t = _host(res.t)
-            self._last_frame = frame
-            self._last_lm_ids = torch.where(res.inlier, lm_ids, INVALID_ID)
-            self._vel = None
-            self.stats["relocalizations"] += 1
-            return self._record(ts, res.R, res.t, n_inl, ref_kf=cand)
-        return None
+        self.stats["reloc_attempts"] += 1
+        with span("slam::relocalize"):
+            cfg = self.cfg
+            q = _vocab.bow_vector(self._vocab, frame.desc, frame.valid)
+            scores = torch.where(self.m.kfs.valid, _vocab.bow_l1_scores(q, self._bow_db), -1.0)
+            common = _host((self._bow_db > 0).to(torch.float32) @ (q > 0).to(torch.float32)).copy()
+            scores = _host(scores)
+            valid = _host(self.m.kfs.valid)
+            common[~valid] = 0.0
+            cand_mask = valid & (scores > 0.0)
+            if cand_mask.any():
+                max_cw = common[cand_mask].max()
+                if max_cw > 0:
+                    cand_mask &= common >= 0.8 * max_cw
+            cands = np.nonzero(cand_mask)[0]
+            if len(cands) > 1:
+                covis = _host(self.m.covis)        # a blocking read; relocalization is rare
+                acc = np.empty(len(cands), np.float32)
+                best_member = np.empty(len(cands), np.int64)
+                for i, c in enumerate(cands):
+                    group = (covis[int(c)] > 0) & cand_mask
+                    group[int(c)] = True
+                    members = np.nonzero(group)[0]
+                    acc[i] = scores[members].sum()
+                    best_member[i] = members[np.argmax(scores[members])]
+                best = np.unique(best_member[acc >= 0.75 * acc.max()])
+                order = [int(c) for c in best[np.argsort(-scores[best])]][:3]
+            else:
+                order = [int(c) for c in cands]
+            for cand in order:
+                if float(scores[cand]) <= 0.0:
+                    break
+                lm_ids, n = tracking.match_reference_kf(self.m, cand, frame, cfg)
+                if int(n) < 15:
+                    continue
+                X, uv, inv_s2, ok = tracking.gather_track_problem(self.m, frame, lm_ids, cfg)
+                pnp = _pnp.solve_pnp_ransac(X, uv, ok, cfg.fx, cfg.fy, cfg.cx, cfg.cy,
+                                            _pnp.draw_pnp_sets(ok, cfg.pnp_ransac_iters, self._gen))
+                if not bool(pnp.success):
+                    continue
+                res = pose_optimization(pnp.R, pnp.t, X, uv, inv_s2, ok, cfg.fx, cfg.fy, cfg.cx, cfg.cy,
+                                        chi2_th=cfg.chi2_mono)
+                n_inl = int(res.n_inliers)
+                if n_inl < cfg.reloc_min_inliers:
+                    continue
+                self.state = OK
+                self.ref_kf = cand
+                self._last_R = _host(res.R)
+                self._last_t = _host(res.t)
+                self._last_frame = frame
+                self._last_lm_ids = torch.where(res.inlier, lm_ids, INVALID_ID)
+                self._vel = None
+                self.stats["relocalizations"] += 1
+                return self._record(ts, res.R, res.t, n_inl, ref_kf=cand)
+            return None
 
     # --- keyframe policy (reference: NeedNewKeyFrame) --------------------
 
@@ -1006,10 +1036,11 @@ class Engine:
             self.stats["kf_slot_full"] += 1
             if self.logger is not None:
                 self.logger.log_event("kf_slots_full", count=self.stats["kf_slot_full"])
-            self.m = mapping.cull_keyframes(self.m, self.ref_kf, self.cfg)
-            if not self._pending_b and not self._pending:
-                # no pull in flight to learn the freed slot from
-                self._refresh_kf_meta_blocking()
+            with span("slam::kf_cull"):
+                self.m = mapping.cull_keyframes(self.m, self.ref_kf, self.cfg)
+                if not self._pending_b and not self._pending:
+                    # no pull in flight to learn the freed slot from
+                    self._refresh_kf_meta_blocking()
             return False
         fid = self.frame_id if fid is None else fid
         # frames resolved from the per-frame pipeline were queued before the
@@ -1026,7 +1057,16 @@ class Engine:
         weak = n_tracked < self.cfg.kf_tracked_ratio * max(self.last_kf_tracked, 1)
         starving = n_tracked < 2 * self.cfg.min_inliers_local
         stale = since >= self.kf_interval
-        return ((weak or starving) and n_tracked > 15) or stale
+        # a True answer always finds the free slot checked above: the keyframe
+        # is inserted, and counted under the first trigger that took it
+        if (weak or starving) and n_tracked > 15:
+            trigger = "kf_weak" if weak else "kf_starving"
+        elif stale:
+            trigger = "kf_stale"
+        else:
+            return False
+        self.stats[trigger] += 1
+        return True
 
     def _create_keyframe(self, frame, ts, R, t, lm_ids, n_tracked):
         """The per-frame entry's keyframe: the shared pipeline, then tracking
@@ -1051,10 +1091,11 @@ class Engine:
         batched entry): queue it; ``track_batch`` takes it into its pull."""
         if not self.loop_closing_enabled or self._vocab is None or self.kf_count <= 10:
             return
-        if dispatch_only:
-            self._loop.dispatch(self.m, self._bow_db, self._vocab, slot, stamp=self.kf_count)
-            return
-        det_kf, cands = self._loop.detect(self.m, self._bow_db, self._vocab, slot, stamp=self.kf_count)
+        with span("slam::loop_detect"):
+            if dispatch_only:
+                self._loop.dispatch(self.m, self._bow_db, self._vocab, slot, stamp=self.kf_count)
+                return
+            det_kf, cands = self._loop.detect(self.m, self._bow_db, self._vocab, slot, stamp=self.kf_count)
         self._close_loop_from(det_kf, cands)
 
     def _close_loop_from(self, det_kf: int, cands) -> None:
@@ -1078,21 +1119,22 @@ class Engine:
             lc = self._loop.compute_sim3(self.m, det_kf, c, generator=self._gen)
             if lc is None:
                 continue
-            # a global BA still in flight optimized the graph before this
-            # correction: abandon it (reference: mbStopGBA stops the running
-            # thread before CorrectLoop starts a new one)
-            self._gba = None
-            self.m = self._loop.correct(self.m, det_kf, lc, self.cfg)
-            # refine the whole map after the correction
-            if self.gba_async:
-                self._start_gba(self.gba_iters)
-            else:
-                self.m = global_bundle_adjustment(self.m, self.cfg, iters=8, group=self.group, stats=self.stats)
-            self._last_R = _host(self.m.kfs.R[self.ref_kf])
-            self._last_t = _host(self.m.kfs.t[self.ref_kf])
-            self._vel = None
-            # in-flight device tracking state predates the correction
-            self._dev_state = None
+            with span("slam::loop_close"):
+                # a global BA still in flight optimized the graph before this
+                # correction: abandon it (reference: mbStopGBA stops the running
+                # thread before CorrectLoop starts a new one)
+                self._gba = None
+                self.m = self._loop.correct(self.m, det_kf, lc, self.cfg)
+                # refine the whole map after the correction
+                if self.gba_async:
+                    self._start_gba(self.gba_iters)
+                else:
+                    self.m = global_bundle_adjustment(self.m, self.cfg, iters=8, group=self.group, stats=self.stats)
+                self._last_R = _host(self.m.kfs.R[self.ref_kf])
+                self._last_t = _host(self.m.kfs.t[self.ref_kf])
+                self._vel = None
+                # in-flight device tracking state predates the correction
+                self._dev_state = None
             break
 
     # --- asynchronous loop-closure global BA ------------------------------
@@ -1125,12 +1167,13 @@ class Engine:
         after its last."""
         if self._gba is None:
             return
-        g = self._gba
-        g["carry"] = lm_steps_pcg(g["prob"], self.cfg, g["carry"], chi2_th=self.cfg.chi2_mono,
-                                  cg_iters=g["cg_iters"], cg_tol=g["cg_tol"], group=self.group, seg=g["seg"])
-        g["left"] -= 1
-        if g["left"] <= 0:
-            self._finish_gba()
+        with span("slam::gba_tick"):
+            g = self._gba
+            g["carry"] = lm_steps_pcg(g["prob"], self.cfg, g["carry"], chi2_th=self.cfg.chi2_mono,
+                                      cg_iters=g["cg_iters"], cg_tol=g["cg_tol"], group=self.group, seg=g["seg"])
+            g["left"] -= 1
+            if g["left"] <= 0:
+                self._finish_gba()
 
     def _finish_gba(self) -> None:
         """Fold the finished global BA into the live map and re-anchor tracking."""

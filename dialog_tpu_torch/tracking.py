@@ -22,6 +22,7 @@ from . import geometry as geo
 from . import matching, ops
 from .config import EngineConfig
 from .containers import INVALID_ID, FrameArrays, MapState
+from .instrument import span
 from .optim.pose_only import pose_optimization
 
 
@@ -130,16 +131,17 @@ _ref_kf_match = match_reference_kf   # the reference's private name for the same
 def local_landmark_ids(m: MapState, ref_kf, cfg: EngineConfig):
     """Landmarks seen by the reference KF's covisibility neighborhood
     (Tracking::UpdateLocalMap). Returns i32[max_local_lms], L = fill."""
-    L = m.lms.xyz.shape[0]
-    neigh = (m.covis[ref_kf] > 0) & m.kfs.valid
-    neigh = neigh | (torch.arange(neigh.shape[0], device=neigh.device) == ref_kf)
-    obs = m.kfs.obs_lm
-    sel = neigh[:, None] & m.kfs.feat_valid & (obs >= 0)
-    mark = ops.scatter_add(
-        torch.zeros((L,), dtype=torch.int32, device=obs.device), torch.where(sel, obs, L), 1
-    )
-    mark = (mark > 0) & m.lms.valid
-    return ops.nonzero_fixed(mark, cfg.max_local_lms, L).to(torch.int32)
+    with span("slam::local_map_search"):
+        L = m.lms.xyz.shape[0]
+        neigh = (m.covis[ref_kf] > 0) & m.kfs.valid
+        neigh = neigh | (torch.arange(neigh.shape[0], device=neigh.device) == ref_kf)
+        obs = m.kfs.obs_lm
+        sel = neigh[:, None] & m.kfs.feat_valid & (obs >= 0)
+        mark = ops.scatter_add(
+            torch.zeros((L,), dtype=torch.int32, device=obs.device), torch.where(sel, obs, L), 1
+        )
+        mark = (mark > 0) & m.lms.valid
+        return ops.nonzero_fixed(mark, cfg.max_local_lms, L).to(torch.int32)
 
 
 def track_local_map_match(m, local_ids, frame: FrameArrays, lm_of_feat, R, t,
@@ -149,24 +151,25 @@ def track_local_map_match(m, local_ids, frame: FrameArrays, lm_of_feat, R, t,
     Existing associations win. Returns (lm_of_feat i32[F], n_matches,
     in_frustum bool[max_local_lms]).
     """
-    F = frame.uv.shape[0]
-    L = m.lms.xyz.shape[0]
-    already = torch.zeros((L + 1,), dtype=torch.bool, device=lm_of_feat.device)
-    already = ops.scatter_set(already, torch.where(lm_of_feat >= 0, lm_of_feat, L), True)[:L]
-    _, desc, uv_pred, octv, in_frustum = _project_landmarks(m, local_ids, R, t, cfg, frustum=True)
-    safe = torch.clamp(local_ids, 0, L - 1)
-    vis = in_frustum & ~already[safe.long()]
-    feat_free = frame.valid & (lm_of_feat < 0)
-    match_ft, _ = matching.match_projected(
-        desc, uv_pred, vis, octv,
-        frame.desc, frame.uv, feat_free, frame.octave,
-        radius=radius, scale_factor=cfg.scale_factor,
-        max_dist=cfg.th_high, ratio=0.8, octave_band=2,
-    )
-    new_lm = _invert_matches(match_ft, safe, F, L)
-    merged = torch.where(lm_of_feat >= 0, lm_of_feat, new_lm)
-    in_frustum = in_frustum | already[safe.long()]
-    return merged, torch.sum((merged >= 0).to(torch.int32)), in_frustum
+    with span("slam::local_map_search"):
+        F = frame.uv.shape[0]
+        L = m.lms.xyz.shape[0]
+        already = torch.zeros((L + 1,), dtype=torch.bool, device=lm_of_feat.device)
+        already = ops.scatter_set(already, torch.where(lm_of_feat >= 0, lm_of_feat, L), True)[:L]
+        _, desc, uv_pred, octv, in_frustum = _project_landmarks(m, local_ids, R, t, cfg, frustum=True)
+        safe = torch.clamp(local_ids, 0, L - 1)
+        vis = in_frustum & ~already[safe.long()]
+        feat_free = frame.valid & (lm_of_feat < 0)
+        match_ft, _ = matching.match_projected(
+            desc, uv_pred, vis, octv,
+            frame.desc, frame.uv, feat_free, frame.octave,
+            radius=radius, scale_factor=cfg.scale_factor,
+            max_dist=cfg.th_high, ratio=0.8, octave_band=2,
+        )
+        new_lm = _invert_matches(match_ft, safe, F, L)
+        merged = torch.where(lm_of_feat >= 0, lm_of_feat, new_lm)
+        in_frustum = in_frustum | already[safe.long()]
+        return merged, torch.sum((merged >= 0).to(torch.int32)), in_frustum
 
 
 def gather_track_problem(m: MapState, frame: FrameArrays, lm_of_feat, cfg: EngineConfig):
@@ -219,22 +222,23 @@ def fused_track_multi(m: MapState, lm_ids0, frames: FrameArrays, R0, t0, R_prev0
 
     Returns (R_last, t_last, R_prev, t_prev, lm_ids_last, packed f32[B, 26],
     (vis_inc, found_inc) i32[L] summed over the batch)."""
-    L = m.lms.xyz.shape[0]
-    local_ids = local_landmark_ids(m, ref_kf, cfg)
-    lm_ids, R, t, Rp, tp, hv = lm_ids0, R0, t0, R_prev0, t_prev0, has_vel0
-    vis_acc = torch.zeros((L,), dtype=torch.int32, device=R0.device)
-    found_acc = torch.zeros_like(vis_acc)
-    true = torch.ones((), dtype=torch.bool, device=R0.device)
-    rows = []
-    for b in range(frames.uv.shape[0]):
-        frame = FrameArrays(*[x[b] for x in frames])
-        R2, t2, lm_ids, packed, (vis_inc, found_inc) = fused_track_step_auto(
-            m, lm_ids, frame, R, t, Rp, tp, hv, ref_kf, cfg, use_stereo=use_stereo, local_ids=local_ids)
-        R, t, Rp, tp, hv = R2, t2, R, t, true
-        vis_acc = vis_acc + vis_inc
-        found_acc = found_acc + found_inc
-        rows.append(packed)
-    return R, t, Rp, tp, lm_ids, torch.stack(rows), (vis_acc, found_acc)
+    with span("slam::track_multi"):
+        L = m.lms.xyz.shape[0]
+        local_ids = local_landmark_ids(m, ref_kf, cfg)
+        lm_ids, R, t, Rp, tp, hv = lm_ids0, R0, t0, R_prev0, t_prev0, has_vel0
+        vis_acc = torch.zeros((L,), dtype=torch.int32, device=R0.device)
+        found_acc = torch.zeros_like(vis_acc)
+        true = torch.ones((), dtype=torch.bool, device=R0.device)
+        rows = []
+        for b in range(frames.uv.shape[0]):
+            frame = FrameArrays(*[x[b] for x in frames])
+            R2, t2, lm_ids, packed, (vis_inc, found_inc) = fused_track_step_auto(
+                m, lm_ids, frame, R, t, Rp, tp, hv, ref_kf, cfg, use_stereo=use_stereo, local_ids=local_ids)
+            R, t, Rp, tp, hv = R2, t2, R, t, true
+            vis_acc = vis_acc + vis_inc
+            found_acc = found_acc + found_inc
+            rows.append(packed)
+        return R, t, Rp, tp, lm_ids, torch.stack(rows), (vis_acc, found_acc)
 
 
 def fused_track_step(m: MapState, last_lm_ids, frame: FrameArrays, R_pred, t_pred,
@@ -257,45 +261,47 @@ def fused_track_step(m: MapState, last_lm_ids, frame: FrameArrays, R_pred, t_pre
     found_inc)) with the reference's packed layout: R (9), t (3), R_rel to
     ref KF (9), t_rel (3), n_tracked, n_motion_matched.
     """
-    chi2 = cfg.chi2_stereo if use_stereo else cfg.chi2_mono
-    stereo = dict(u_right=frame.u_right, bf=cfg.bf, use_stereo=use_stereo)
-    lm_ids, n_mm = _motion_match(m, last_lm_ids, frame, R_pred, t_pred, cfg, cfg.motion_search_radius)
-    R0, t0 = R_pred, t_pred
-    # the reference's lax.cond on the match count: a host read, or a device select
-    if not host_branch or int(n_mm) < 20:
-        lm_b, n_b = _motion_match(m, last_lm_ids, frame, R_pred, t_pred, cfg,
-                                  2.0 * cfg.motion_search_radius)
-        lm_c, n_c = match_reference_kf(m, ref_kf, frame, cfg)
-        use_b = n_b >= 20
-        happy = n_mm >= 20      # all False under the host's branch
-        lm_ids = torch.where(happy, lm_ids, torch.where(use_b, lm_b, lm_c))
-        R0 = torch.where(happy, R_pred, torch.where(use_b, R_pred, R_last))
-        t0 = torch.where(happy, t_pred, torch.where(use_b, t_pred, t_last))
-        n_mm = torch.where(happy, n_mm, torch.where(use_b, n_b, n_c))
+    with span("slam::track_step"):
+        chi2 = cfg.chi2_stereo if use_stereo else cfg.chi2_mono
+        stereo = dict(u_right=frame.u_right, bf=cfg.bf, use_stereo=use_stereo)
+        with span("slam::motion_search"):
+            lm_ids, n_mm = _motion_match(m, last_lm_ids, frame, R_pred, t_pred, cfg, cfg.motion_search_radius)
+            R0, t0 = R_pred, t_pred
+            # the reference's lax.cond on the match count: a host read, or a device select
+            if not host_branch or int(n_mm) < 20:
+                lm_b, n_b = _motion_match(m, last_lm_ids, frame, R_pred, t_pred, cfg,
+                                          2.0 * cfg.motion_search_radius)
+                lm_c, n_c = match_reference_kf(m, ref_kf, frame, cfg)
+                use_b = n_b >= 20
+                happy = n_mm >= 20      # all False under the host's branch
+                lm_ids = torch.where(happy, lm_ids, torch.where(use_b, lm_b, lm_c))
+                R0 = torch.where(happy, R_pred, torch.where(use_b, R_pred, R_last))
+                t0 = torch.where(happy, t_pred, torch.where(use_b, t_pred, t_last))
+                n_mm = torch.where(happy, n_mm, torch.where(use_b, n_b, n_c))
 
-    X, uv, inv_s2, valid = gather_track_problem(m, frame, lm_ids, cfg)
-    res = pose_optimization(R0, t0, X, uv, inv_s2, valid, cfg.fx, cfg.fy, cfg.cx, cfg.cy,
-                            chi2_th=chi2, rounds=cfg.pose_opt_rounds, iters=cfg.pose_opt_iters, **stereo)
-    lm_ids = torch.where(res.inlier, lm_ids, INVALID_ID)
+        X, uv, inv_s2, valid = gather_track_problem(m, frame, lm_ids, cfg)
+        res = pose_optimization(R0, t0, X, uv, inv_s2, valid, cfg.fx, cfg.fy, cfg.cx, cfg.cy,
+                                chi2_th=chi2, rounds=cfg.pose_opt_rounds, iters=cfg.pose_opt_iters, **stereo)
+        lm_ids = torch.where(res.inlier, lm_ids, INVALID_ID)
 
-    if local_ids is None:
-        local_ids = local_landmark_ids(m, ref_kf, cfg)
-    lm_ids, _, in_frustum = track_local_map_match(m, local_ids, frame, lm_ids, res.R, res.t, cfg)
-    X, uv, inv_s2, valid = gather_track_problem(m, frame, lm_ids, cfg)
-    res2 = pose_optimization(res.R, res.t, X, uv, inv_s2, valid, cfg.fx, cfg.fy, cfg.cx, cfg.cy,
-                             chi2_th=chi2, rounds=2, iters=cfg.pose_opt_iters, **stereo)
-    lm_ids, n_tracked = filter_outlier_assoc(res2.R, res2.t, m, frame, lm_ids, cfg, chi2_th=chi2)
+        if local_ids is None:
+            local_ids = local_landmark_ids(m, ref_kf, cfg)
+        lm_ids, _, in_frustum = track_local_map_match(m, local_ids, frame, lm_ids, res.R, res.t, cfg)
+        X, uv, inv_s2, valid = gather_track_problem(m, frame, lm_ids, cfg)
+        res2 = pose_optimization(res.R, res.t, X, uv, inv_s2, valid, cfg.fx, cfg.fy, cfg.cx, cfg.cy,
+                                 chi2_th=chi2, rounds=2, iters=cfg.pose_opt_iters, **stereo)
+        lm_ids, n_tracked = filter_outlier_assoc(res2.R, res2.t, m, frame, lm_ids, cfg, chi2_th=chi2)
 
-    L = m.lms.xyz.shape[0]
-    zeros = torch.zeros((L,), dtype=torch.int32, device=lm_ids.device)
-    vis_inc = ops.scatter_add(zeros, torch.where(in_frustum, local_ids, L), 1)
-    found_inc = ops.scatter_add(zeros, torch.where(lm_ids >= 0, lm_ids, L), 1)
-    vis_inc = torch.maximum(vis_inc, found_inc)
-    R_ref, t_ref = m.kfs.R[ref_kf], m.kfs.t[ref_kf]
-    R_rel = res2.R @ R_ref.T
-    t_rel = res2.t - R_rel @ t_ref
-    packed = torch.cat([
-        res2.R.reshape(9), res2.t, R_rel.reshape(9), t_rel,
-        torch.stack([n_tracked.to(torch.float32), n_mm.to(torch.float32)]),
-    ])
-    return res2.R, res2.t, lm_ids, packed, (vis_inc, found_inc)
+        L = m.lms.xyz.shape[0]
+        zeros = torch.zeros((L,), dtype=torch.int32, device=lm_ids.device)
+        vis_inc = ops.scatter_add(zeros, torch.where(in_frustum, local_ids, L), 1)
+        found_inc = ops.scatter_add(zeros, torch.where(lm_ids >= 0, lm_ids, L), 1)
+        vis_inc = torch.maximum(vis_inc, found_inc)
+        R_ref, t_ref = m.kfs.R[ref_kf], m.kfs.t[ref_kf]
+        R_rel = res2.R @ R_ref.T
+        t_rel = res2.t - R_rel @ t_ref
+        packed = torch.cat([
+            res2.R.reshape(9), res2.t, R_rel.reshape(9), t_rel,
+            torch.stack([n_tracked.to(torch.float32), n_mm.to(torch.float32)]),
+        ])
+        return res2.R, res2.t, lm_ids, packed, (vis_inc, found_inc)

@@ -26,6 +26,31 @@ def test_busy_seconds_is_the_union_of_device_intervals():
     assert pm._busy_seconds([]) == 0.0
 
 
+def test_idle_gaps_go_to_the_innermost_span_open_at_their_midpoint():
+    device = [(0, 10), (30, 40), (45, 50), (90, 95), (200, 210)]
+    ranges = {"slam::track_step": [(5, 100)], "slam::pose_opt": [(20, 60)], "slam::keyframe": [(150, 160)]}
+    gaps = pm.idle_by_span(device, ranges)
+    # 10-30 and 40-45 inside pose_opt (the shorter of the two open), 50-90 at 70 inside track_step
+    # alone, 95-200 at 147 inside neither
+    assert gaps == pytest.approx({"slam::pose_opt": 25e-9, "slam::track_step": 40e-9, pm.OUTSIDE_SPANS: 105e-9})
+    assert pm.idle_by_span([], ranges) == {}
+
+
+def test_read_profile_holds_the_ports_spans_by_name():
+    from torch.profiler import ProfilerActivity, profile
+
+    from dialog_tpu_torch.instrument import span
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            with span("slam::outer"), span("slam::inner"):
+                torch.ones(4).sum()
+    r = pm.read_profile(prof)
+    assert r["host"]["slam::outer"][0] == r["host"]["slam::inner"][0] == 3
+    assert r["host"]["slam::outer"][1] >= r["host"]["slam::inner"][1] > 0
+    assert r["device_kernels"] == 0 and r["idle_by_span"] == {}
+
+
 def test_rel_err_scales_by_the_largest_magnitude():
     want = torch.tensor([[1.0, 1e-6], [2.0, 4.0]])
     got = want + torch.tensor([[0.0, 1e-5], [0.0, 0.0]])

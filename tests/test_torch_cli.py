@@ -16,6 +16,7 @@ frame with the ground-truth row at its timestamp; R2: an ATE that is not
 finite prints as undefined.
 """
 
+import json
 import os
 import re
 
@@ -168,6 +169,17 @@ def test_run_synth(tmp_path, capsys, trajectory):
     ate = re.search(r"ATE (undefined|[\d.]+ cm)", printed).group(1)
     assert (ate == "undefined") == (trajectory == "loop")
     assert len(out.read_text().splitlines()) == 16
+    # the engine's counters, one JSON line after the timing line: on the sweep every keyframe
+    # after the two of the initial map was taken by one trigger
+    lines = printed.splitlines()
+    at = next(i for i, line in enumerate(lines) if line.startswith("median track time:"))
+    assert lines[at + 1].startswith("engine stats: {")
+    stats = json.loads(lines[at + 1].removeprefix("engine stats: "))
+    kfs = int(re.search(r"kfs (\d+)", printed).group(1))
+    if trajectory == "sweep":
+        assert stats["kf_weak"] + stats["kf_starving"] + stats["kf_stale"] == kfs - 2 > 0
+    else:
+        assert stats["kf_weak"] + stats["kf_starving"] + stats["kf_stale"] == kfs == 0
 
 
 def test_r3_gt_scores_the_frames_tracked_ok_only(seqs, capsys):
@@ -192,7 +204,7 @@ class _Run:
 
     def __init__(self, stamps, states, positions):
         self.trajectory = [_Record(t, s) for t, s in zip(stamps, states)]
-        self.positions, self.kf_count = positions, 2
+        self.positions, self.kf_count, self.stats = positions, 2, {}
 
 
 def test_r8_ground_truth_is_paired_by_timestamp(capsys):

@@ -989,3 +989,33 @@ def test_read_profile_reads_what_the_event_list_reads(cuda):
     host = {k: n for k, (n, _) in got["host"].items()}
     assert {k: rows[k] for k in pm.SYNC_ROWS if k in rows} == {k: host[k] for k in pm.SYNC_ROWS if k in host}
     assert host["aten::item"] == 20 and host["cudaStreamSynchronize"] >= 20
+
+def test_a_span_leaves_no_copy_on_the_devices_timeline(cuda):
+    """``instrument.span`` under a profiler that traces host and device: a host event of operator
+    scope that encloses the launches of its kernels, on the clock of the device's events, with no
+    event of its own on the device's timeline. ``record_function``'s range beside it is a user
+    annotation, which the profiler does copy onto the device's timeline: a reader of device events
+    would take that copy for device work."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from dialog_tpu_torch.instrument import span
+
+    x = torch.randn(256, 256, device=cuda)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            with span("slam::probe"):
+                (x @ x).relu_()
+            with record_function("bench::probe"):
+                (x @ x).relu_()
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    on_device = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA]
+    spans = [e for e in events if e.name() == "slam::probe"]
+    assert len(spans) == 5 and not any(e.is_user_annotation() for e in spans)
+    assert not any(e.name().startswith("slam::") for e in on_device)
+    assert any(e.name() == "bench::probe" for e in on_device)
+    launches = [e.start_ns() for e in events if "LaunchKernel" in e.name()]
+    for s in spans:
+        assert any(s.start_ns() <= t <= s.start_ns() + s.duration_ns() for t in launches)
+    kernels = [e for e in on_device if not e.name().startswith(("Memcpy", "Memset", "bench::"))]
+    assert kernels and abs(kernels[0].start_ns() - spans[0].start_ns()) < 10**9   # one clock, in ns
