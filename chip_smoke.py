@@ -82,7 +82,11 @@ Needs one CUDA card and nvcc; exits non-zero without them. It
    one-image launches, odd sizes) and kernel
    B (gated Hamming best/second, and the one-pass mutual match against its
    two-call plain form, with and without each gate, with ties and empty
-   sides) against their plain PyTorch versions on the card, bit for bit;
+   sides) against their plain PyTorch versions on the card, bit for bit; and
+   the pose LM kernel (``pose_optimization`` on CUDA tensors, one launch a
+   call) against its plain loop on the card, mono and stereo at N = 1,024,
+   2 x 6 and 4 x 10 (a seeded ``synth_problem.make_pose_problem``): the same
+   inliers, R and t within 1e-4, two calls bit for bit;
 11. times each kernel at its path's shapes: the device's own time per call
    under ``torch.profiler`` (the kernel's launches by name, kernel C's two
    stages apart), the pace of back-to-back wrapper calls between two CUDA
@@ -91,6 +95,9 @@ Needs one CUDA card and nvcc; exits non-zero without them. It
    operations over 67 TFLOP/s f32, whichever is larger); and kernel C at
    global BA's camera counts (C = 96, 128 and 192 on seeded problems of
    16,384 landmark slots, O = 12), held against its plain version first;
+   the pose LM at 2 x 6 and 4 x 10 also over no observations (``chain_ms``:
+   the same launch with nothing but its serial chain of block sums and
+   one-thread 6x6 solves, the latency yardstick of its design);
 12. checks determinism and the engine's other modes: ``mono`` and ``loop``
    once more on fresh engines from the same seeds, every record and every
    map leaf bit for bit against the first runs (``loop``'s global BA
@@ -270,6 +277,8 @@ DEVICE_KERNELS = {
     "schur_reduce": ("schur_obs", "schur_cams"),
     "schur_reduce_stereo": ("schur_obs", "schur_cams"),
     "schur_reduce_frozen": ("schur_obs", "schur_cams"),
+    "pose_lm": ("pose_lm_kernel",),
+    "pose_lm_stereo": ("pose_lm_kernel",),
 }
 HOST_PACED = 1.5        # a wrapper loop this many times slower than the device's own time is paced by the host
 # the cli phase: the mono, RGB-D and stereo paths' frames as TUM and KITTI sequences on disk, and a EuRoC one
@@ -296,6 +305,12 @@ BENCH_OCCLUDE_AT = 48
 RELOC_MIN_MATCHES = 15  # _try_relocalize's descriptor-match gate
 PNP_MIN_INLIERS = 15    # solve_pnp_ransac's default
 RELOC_REDRAWS = 16      # the same PnP problem solved again with the engine generator's next draws
+# the pose LM kernel: observations (the TUM-class max_features), (rounds, iterations) of the tracking step and of
+# relocalization, R and t against the plain loop (the CPU pose tests' tolerance against JAX), the problems' seed
+POSE_N = 1024
+POSE_SHAPES = ((2, 6), (4, 10))
+POSE_TOL = 1e-4
+POSE_SEED = 21
 
 KERNELS = {
     "fast_nms_rank": ("dialog_tpu_torch/csrc/fast.cu", "dialog_tpu/kernels/fast.py:118"),
@@ -305,6 +320,8 @@ KERNELS = {
     "schur_reduce": ("dialog_tpu_torch/csrc/schur.cu", "dialog_tpu/kernels/schur.py:293"),
     "schur_reduce_stereo": ("dialog_tpu_torch/csrc/schur.cu", "dialog_tpu/kernels/schur.py:293"),
     "schur_reduce_frozen": ("dialog_tpu_torch/csrc/schur.cu", "dialog_tpu/kernels/schur.py:293"),
+    "pose_lm": ("dialog_tpu_torch/csrc/pose.cu", "none: XLA's program of dialog_tpu/optim/pose_only.py:78"),
+    "pose_lm_stereo": ("dialog_tpu_torch/csrc/pose.cu", "none: XLA's program of dialog_tpu/optim/pose_only.py:78"),
 }
 
 
@@ -665,6 +682,10 @@ def check_path(name, eng, scene, launches, *, with_scale: bool, ate_gate: float,
     for k, n in max_launches.items():
         if launches[k] > n:
             fail(f"{name}: kernel {k} launched {launches[k]} > {n} times")
+    n_tracked = sum(1 for s in states[first_ok + 1:] if s == OK)
+    if launches["pose_lm"] + launches["pose_lm_stereo"] < 2 * n_tracked:
+        fail(f"{name}: the pose LM launched {launches['pose_lm']} + {launches['pose_lm_stereo']} times for "
+             f"{n_tracked} tracked frames (two a frame)")
     return out
 
 
@@ -826,6 +847,9 @@ def check_batch_path(name, run, *, with_scale: bool, ate_gate: float) -> dict:
         fail(f"{name}: hamming_mutual launched {launches['hamming_mutual']} times for {n_tracked} tracked frames")
     if launches["schur_reduce_stereo" if stereo else "schur_reduce"] < 1:
         fail(f"{name}: kernel C was not launched")
+    pose = "pose_lm_stereo" if stereo else "pose_lm"
+    if launches[pose] < 2 * n_tracked:
+        fail(f"{name}: {pose} launched {launches[pose]} times for {n_tracked} tracked frames (two a frame)")
     if counts["pulls"] > counts["batches"] or counts["pulls"] < 1:
         fail(f"{name}: {counts['pulls']} host pulls for {counts['batches']} batches")
     if not blanked <= set(out["lost_frames"]):
@@ -915,6 +939,7 @@ def reloc_probe(run, dev, smi) -> dict:
     one ``solve_pnp_ransac`` on the probe's own problem."""
     from dialog_tpu_torch import pnp, tracking, vocab
     from dialog_tpu_torch.containers import FrameArrays
+    from dialog_tpu_torch.kernels import common
     from dialog_tpu_torch.system import LOST
 
     eng, frames = run["eng"], run["frames"]
@@ -934,9 +959,13 @@ def reloc_probe(run, dev, smi) -> dict:
         return out, time.perf_counter() - t
 
     eng.state, eng._vel = LOST, None
+    n_pose = common.launches["pose_lm"]
     rec, reloc_s = timed(lambda: eng._try_relocalize(frame, rec0.timestamp))
+    n_pose = common.launches["pose_lm"] - n_pose
     if rec is None:
         fail("relocalization probe: _try_relocalize did not recover a tracked frame")
+    if n_pose < 1:
+        fail("relocalization probe: the relocalization ran no pose LM launch")
     pos = float(np.abs(-rec.R.T @ rec.t - (-R0.T @ t0)).max())
     rot = float(np.degrees(np.arccos(np.clip((np.trace(rec.R @ R0.T) - 1.0) / 2.0, -1.0, 1.0))))
     # the probe's own PnP problem, and the map's vocabulary from nothing
@@ -953,7 +982,7 @@ def reloc_probe(run, dev, smi) -> dict:
     eng._vocab = None
     _, vocab_s = timed(eng._ensure_vocab)
     out = dict(frame=fid, candidate_kf=rec.ref_kf, n_inliers=rec.n_tracked, pos_err_map_units=pos, rot_err_deg=rot,
-               relocalization_s=reloc_s, solve_pnp_ransac_s=pnp_s, pnp_points=int(ok.sum()),
+               relocalization_s=reloc_s, pose_lm_launches=n_pose, solve_pnp_ransac_s=pnp_s, pnp_points=int(ok.sum()),
                pnp_inliers=int(res.n_inliers), pnp_iters=cfg.pnp_ransac_iters, train_vocab_s=train_s,
                ensure_vocab_s=vocab_s, vocab_words=cfg.vocab_words, vocab_descriptor_slots=int(desc.shape[0]),
                vocab_valid_descriptors=int(valid.sum()))
@@ -2814,7 +2843,7 @@ def check_bench(lines) -> dict:
         if launches["fast_nms_rank_batch"] != s["frontend_batches"]:
             fail(f"bench {n}: fast_nms_rank_batch launched {launches['fast_nms_rank_batch']} times for "
                  f"{s['frontend_batches']} batched frontend calls")
-        for k in ("hamming_mutual", c_kernel):
+        for k in ("hamming_mutual", c_kernel, "pose_lm" if c_kernel == "schur_reduce" else "pose_lm_stereo"):
             if launches[k] < 1:
                 fail(f"bench {n}: {k} was not launched")
         if not (isinstance(s["ate_m"], float) and s["ate_m"] < 2 * ref):
@@ -2822,6 +2851,73 @@ def check_bench(lines) -> dict:
     return dict(fps={n: metrics[2 * k]["value"] for k, n in enumerate(names)},
                 vs_baseline={n: metrics[2 * k]["vs_baseline"] for k, n in enumerate(names)}, notes=notes,
                 launches={BENCH_WORKLOADS[n][0]: notes[n]["launches"] for n in names})
+
+
+def _pose_call(p, rounds: int, iters: int, plain: bool = False):
+    from dialog_tpu_torch.optim import pose_only
+
+    fn = pose_only.pose_optimization_plain if plain else pose_only.pose_optimization
+    return fn(**p, chi2_th=7.815 if p["use_stereo"] else 5.991, rounds=rounds, iters=iters)
+
+
+def check_pose(dev) -> dict:
+    """The pose LM kernel against its plain loop on the card, mono and stereo
+    at POSE_N observations and each of POSE_SHAPES: the same inlier set and
+    count, R and t within POSE_TOL, and a second call equal bit for bit.
+    Returns the largest |R, t difference| of each variant."""
+    from dialog_tpu_torch.optim.synth_problem import make_pose_problem
+
+    errs = {}
+    for name, stereo in (("pose_lm", False), ("pose_lm_stereo", True)):
+        p = make_pose_problem(seed=POSE_SEED, n=POSE_N, stereo=stereo, device=dev)
+        for rounds, iters in POSE_SHAPES:
+            got, again = _pose_call(p, rounds, iters), _pose_call(p, rounds, iters)
+            want = _pose_call(p, rounds, iters, plain=True)
+            torch.cuda.synchronize()
+            err = max(float((got.R - want.R).abs().max()), float((got.t - want.t).abs().max()))
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            inl = torch.equal(got.inlier, want.inlier) and int(got.n_inliers) == int(want.n_inliers)
+            say(f"{name} {rounds}x{iters}: max |R, t - plain| {err}, inliers {int(got.n_inliers)} (plain "
+                f"{int(want.n_inliers)}), cost {float(got.cost)} (plain {float(want.cost)}), repeat bit for bit {same}")
+            if not (inl and err < POSE_TOL and same):
+                fail(f"{name} {rounds}x{iters}: the kernel differs from its plain loop (inliers equal {inl}, "
+                     f"R/t {err} >= {POSE_TOL}, or a repeat differs: {not same})")
+            errs[name] = max(errs.get(name, 0.0), err)
+    return errs
+
+
+def pose_bound(p, rounds: int, iters: int) -> dict:
+    """The pose LM's least time: its inputs read once and outputs written once,
+    or its float operations, rounds x (iters + 1) passes over the observations
+    at ~40 for the projection and residual and 54 (27 multiply-adds) a row
+    for H, g and the cost, whichever is larger."""
+    ins = [p[k] for k in ("R0", "t0", "X", "uv", "inv_sigma2", "valid")] + ([p["u_right"]] if p["use_stereo"] else [])
+    n = p["X"].shape[0]
+    out_bytes = 4 * 13 + 8 + n
+    ops = rounds * (iters + 1) * n * (40 + 54 * (3 if p["use_stereo"] else 2))
+    return bound(nbytes(*ins) + out_bytes, ops)
+
+
+def pose_entries(dev) -> dict:
+    """The pose LM's readings at the main path's shapes: POSE_N observations,
+    mono and stereo, 2 x 6 (tracking) with 4 x 10 (relocalization) under
+    ``rounds4_iters10``; ``chain_ms`` the device time of the same launch over
+    no observations, its serial chain of block sums and one-thread solves."""
+    from dialog_tpu_torch.optim.synth_problem import make_pose_problem
+
+    times = {}
+    for name, stereo in (("pose_lm", False), ("pose_lm_stereo", True)):
+        p = make_pose_problem(seed=POSE_SEED, n=POSE_N, stereo=stereo, device=dev)
+        empty = make_pose_problem(seed=POSE_SEED, n=0, stereo=stereo, device=dev)
+        shape = {}
+        for rounds, iters in POSE_SHAPES:
+            chain = device_ms(lambda: _pose_call(empty, rounds, iters), DEVICE_KERNELS[name])["device_ms"]
+            shape[(rounds, iters)] = entry(name, lambda: _pose_call(p, rounds, iters),
+                                           lambda: _pose_call(p, rounds, iters, plain=True),
+                                           pose_bound(p, rounds, iters), observations=POSE_N, rounds=rounds,
+                                           iters=iters, chain_ms=chain)
+        times[name] = dict(shape[POSE_SHAPES[0]], rounds4_iters10=shape[POSE_SHAPES[1]])
+    return times
 
 
 def entry(name, fn, plain, limit, reps=20, **extra) -> dict:
@@ -2916,6 +3012,7 @@ def kernel_times(images, cfg, prob, stereo_cfg, stereo_prob, dev, mono_stack, st
                                 cam_index_device_ms=device_ms(build_index, ())["other_device_ms"],
                                 cam_index_ms=time_ms(build_index), solve_iters=c.local_ba_iters)
         t["solve_device_ms"] = t["cam_index_device_ms"] + t["solve_iters"] * t["device_ms"]
+    times.update(pose_entries(dev))
     return times
 
 
@@ -3029,6 +3126,8 @@ def main() -> int:
     err_ab = check_fast_batch([("mono_batch", mono_stack, cfg), ("stereo_batch", stereo_stack, seng.cfg)], dev)
     err_b, err_m = check_hamming(dev)
     mark("kernels_ab")
+    err_pose = check_pose(dev)
+    mark("pose")
 
     times = kernel_times(images, cfg, prob, seng.cfg, sprob, dev, mono_stack, stereo_stack)
     times["schur_reduce"]["global_ba_C"] = check_schur_large_c(dev, smi)
@@ -3058,7 +3157,7 @@ def main() -> int:
                          dev, smi)
     mark("cli")
     errs = {"fast_nms_rank": err_a, "fast_nms_rank_batch": err_ab, "hamming_best2": err_b, "hamming_mutual": err_m,
-            "schur_reduce": err_c, "schur_reduce_stereo": err_cs, "schur_reduce_frozen": err_cf}
+            "schur_reduce": err_c, "schur_reduce_stereo": err_cs, "schur_reduce_frozen": err_cf, **err_pose}
     rels = {"schur_reduce": rel_c, "schur_reduce_stereo": rel_cs, "schur_reduce_frozen": rel_cf}
     by_path = {"mono": launches, "stereo": slaunches, "rgbd": rlaunches, "mono_batch": mb["launches"],
                "stereo_batch": sb["launches"], **{name: run["launches"] for name, run in loop_runs.items()},
@@ -3073,7 +3172,7 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         path = {"schur_reduce_stereo": "stereo", "fast_nms_rank_batch": "mono_batch",
-                "schur_reduce_frozen": "block_capacity"}.get(name, "mono")
+                "schur_reduce_frozen": "block_capacity", "pose_lm_stereo": "stereo"}.get(name, "mono")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": by_path[path][name], "launches_path": path,
@@ -3090,7 +3189,10 @@ def main() -> int:
                f"iterations {t['solve_device_ms']} ms" if "solve_device_ms" in t else "")
             + "".join(f"; at C={c}: device {g['device_ms']} ms {json.dumps(g['stages_ms'])}, wrapper loop "
                       f"{g['wrapper_loop_ms']} ms, plain {g['plain_ms']} ms, bound {g['bound_ms']} ms by {g['bound_by']}"
-                      for c, g in t.get("global_ba_C", {}).items()))
+                      for c, g in t.get("global_ba_C", {}).items())
+            + "".join(f"; {g['rounds']}x{g['iters']} at N={g['observations']}: device {g['device_ms']} ms, chain "
+                      f"{g['chain_ms']} ms, wrapper loop {g['wrapper_loop_ms']} ms, plain {g['plain_ms']} ms"
+                      for g in ([t, t["rounds4_iters10"]] if "chain_ms" in t else [])))
     say(f"chip_smoke.py: {time.perf_counter() - t_script:.1f} s in all, the kernels' build included, on {smi}; "
         f"by phase: {json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}), flush=True)

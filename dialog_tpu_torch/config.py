@@ -51,7 +51,7 @@ class EngineConfig:
     cell_size: int = 32           # detection grid cell (px, level-0 scale)
 
     # --- capacities (fixed tensor shapes) ---------------------------------
-    max_features: int = 1024      # F: per-frame feature capacity
+    max_features: int = 1024      # F: per-frame feature capacity (the pose LM kernel takes any F)
     max_keyframes: int = 512      # K
     max_landmarks: int = 32768    # L
     max_new_landmarks: int = 4096 # per-keyframe triangulation budget

@@ -46,6 +46,9 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "hamming_best2_launch": (_I, [_P] * 10 + [_I] * 3 + [_P] * 4),
         "hamming_mutual_launch": (_I, [_P] * 9 + [_I] * 4 + [_F] + [_P] * 6),
     },
+    "pose": {
+        "pose_lm_launch": (_I, [_P] * 7 + [_I] + [_F] * 6 + [_I] * 3 + [_P] * 6),
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -17,9 +17,11 @@ import torch
 # (kernel C's stereo variant counts apart from its mono variant; one mutual
 # match of kernel B counts once as hamming_mutual, whatever it launches;
 # kernel A over a batch of images counts apart from kernel A over one image;
-# kernel C with frozen landmarks counts as schur_reduce_frozen, in either variant)
+# kernel C with frozen landmarks counts as schur_reduce_frozen, in either variant;
+# the pose LM's stereo form counts apart from its mono form)
 launches: dict[str, int] = {"fast_nms_rank": 0, "fast_nms_rank_batch": 0, "hamming_best2": 0, "hamming_mutual": 0,
-                            "schur_reduce": 0, "schur_reduce_stereo": 0, "schur_reduce_frozen": 0}
+                            "schur_reduce": 0, "schur_reduce_stereo": 0, "schur_reduce_frozen": 0,
+                            "pose_lm": 0, "pose_lm_stereo": 0}
 
 
 def reset_launch_counts() -> None:

@@ -17,6 +17,11 @@ capacity phase. ``perturb_block_local`` moves such a map off its truth
 the way ``tests/test_block_ba.py``'s block-local corridor is moved, for
 block bundle adjustment.
 
+``make_pose_problem`` builds the inputs of one ``pose_optimization`` call
+(motion-only BA, mono or stereo) with outliers, points behind the camera
+and a start pose off the truth, for the pose LM kernel's checks on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``) and its CPU tests.
+
 ``make_pose_graph`` builds a seeded Sim3 pose graph of the engine's shape
 (K keyframe slots, K tree + 4K covisibility + 1 loop edges): a ring of
 keyframes whose states carry odometry and scale drift, closed by its loop
@@ -138,6 +143,45 @@ def make_problem(
         obs_ur=dev(obs_ur) if stereo_frac > 0 else None,
     )
     return prob, Rs, ts, pts, n_cams, n_pts
+
+
+def make_pose_problem(seed: int = 0, n: int = 1024, stereo: bool = False, outlier_share: float = 0.04,
+                      n_behind: int = 5, off: float = 0.02, valid_share: float = 0.95, device="cuda") -> dict:
+    """The arguments of one ``pose_optimization`` call at 500 px focal length,
+    640x480: ``n`` points 4-10 units ahead of a camera at a random pose,
+    their pixels with 0.7 px of noise, the first ``outlier_share`` of them
+    moved by up to 40 px (past the Huber knee), the next ``n_behind`` put
+    behind the camera (z <= 1e-3), octave weights 1.2^-2k, about
+    ``valid_share`` of them valid, and the start pose moved off the truth by
+    a twist of N(0, ``off``) per component. With ``stereo`` about half of
+    the observations carry a right-x at bf = 60 (the rest u_right = -1) and
+    ``use_stereo`` is on."""
+    rng = np.random.default_rng(seed)
+    X = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n), rng.uniform(4, 10, n)], -1).astype(np.float32)
+    R, t = geo.se3_exp(torch.from_numpy((rng.normal(size=6) * 0.05).astype(np.float32)))
+    R, t = R.numpy(), t.numpy()
+    Xc = X @ R.T + t
+    fx = fy = 500.0
+    cx, cy, bf = 320.0, 240.0, 60.0
+    uv = np.stack([fx * Xc[:, 0] / Xc[:, 2] + cx, fy * Xc[:, 1] / Xc[:, 2] + cy], -1)
+    uv = (uv + rng.normal(0, 0.7, uv.shape)).astype(np.float32)
+    ur = (uv[:, 0] - bf / Xc[:, 2] + rng.normal(0, 0.7, n)).astype(np.float32)
+    ur[rng.random(n) < 0.5] = -1.0
+    n_out = int(round(outlier_share * n))
+    uv[:n_out] += rng.uniform(-40, 40, (n_out, 2)).astype(np.float32)
+    behind = slice(n_out, min(n, n_out + n_behind))
+    X[behind] = (Xc[behind] * np.array([1.0, 1.0, -1.0], np.float32) - t) @ R   # depth negated
+    inv_s2 = (1.2 ** (-2.0 * rng.integers(0, 8, n))).astype(np.float32)
+    valid = rng.random(n) < valid_share
+    R0, t0 = geo.se3_retract(torch.from_numpy(R), torch.from_numpy(t),
+                             torch.from_numpy((rng.normal(size=6) * off).astype(np.float32)))
+
+    def dev(x):
+        return torch.as_tensor(x).to(device).contiguous()
+
+    return dict(R0=dev(R0), t0=dev(t0), X=dev(X), uv=dev(uv), inv_sigma2=dev(inv_s2), valid=dev(valid),
+                fx=fx, fy=fy, cx=cx, cy=cy, u_right=dev(ur) if stereo else None, bf=bf if stereo else 0.0,
+                use_stereo=stereo)
 
 
 def make_pose_graph(seed: int = 0, K: int = 256, n_live: int | None = None, drift: float = 0.02,

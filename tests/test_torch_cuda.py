@@ -56,6 +56,19 @@ launches, and a repeat bit for bit. The
 fixed-order segment sum and the global BA and pose graph built on it repeat
 bit for bit (ROADMAP D15).
 
+The pose LM kernel (``kernels/pose.py``, one launch a ``pose_optimization``
+call): against the plain loop on the card and against the float64
+reference (``bench_port/reference/pose.py``), mono and stereo (a right-x on
+half the observations), (rounds, iters) = (2, 6) and (4, 10), N = 2,048,
+1,024, 1,000 and 37, and on hard problems (30% outliers past the Huber
+knee, 300 points behind the camera, no valid observation, none at all, a
+start whose LM rejects steps): the same inlier set, R and t within 1e-4 (the CPU pose
+tests' tolerance against JAX), the cost within float32 rounding of a sum
+(relative 1e-5), two calls bit for bit in fresh tensors, one launch a
+call; the wrapper raises on a wrong type, shape or device, a
+non-contiguous tensor and the stereo form without u_right. N has no limit
+of the kernel's own.
+
 The port's periphery on the card machine (which has no cv2): the kernels'
 self-check (``kernels.selfcheck``, every case), and PNG files written by
 ``datasets.png.write_png`` decoding back to their arrays bit for bit and
@@ -72,7 +85,10 @@ from dialog_tpu_torch.config import EngineConfig
 from dialog_tpu_torch.datasets import synth
 from dialog_tpu_torch.kernels import common
 from dialog_tpu_torch.kernels import fast, hamming, schur
+from dialog_tpu_torch.kernels import pose as pose_kernel
+from dialog_tpu_torch.optim import pose_only
 from dialog_tpu_torch.optim.local_ba import BAProblem, solve_ba
+from dialog_tpu_torch.optim.synth_problem import make_pose_problem
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(2)
@@ -656,6 +672,85 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the pose LM kernel
+# ---------------------------------------------------------------------------
+
+POSE_HARD = {"outliers": dict(outlier_share=0.3), "behind": dict(n_behind=300), "none-valid": dict(valid_share=0.0),
+             "far-start": dict(off=0.15), "no-observation": dict(n=0)}
+
+
+def _pose(p, chi2, rounds, iters, fn=pose_only.pose_optimization):
+    return fn(**p, chi2_th=chi2, rounds=rounds, iters=iters)
+
+
+def _assert_pose_close(got, want):
+    assert torch.equal(got.inlier, want.inlier) and int(got.n_inliers) == int(want.n_inliers)
+    assert float((got.R - want.R).abs().max()) < 1e-4 and float((got.t - want.t).abs().max()) < 1e-4
+    assert abs(float(got.cost) - float(want.cost)) <= 1e-5 * abs(float(want.cost)) + 1e-6
+
+
+def _pose_checks(p, chi2, rounds, iters):
+    """One launch a call, two calls bit for bit in fresh tensors, and the
+    plain loop's answer on the card; returns the kernel's answer."""
+    name = "pose_lm_stereo" if p["use_stereo"] else "pose_lm"
+    common.reset_launch_counts()
+    got = _pose(p, chi2, rounds, iters)
+    again = _pose(p, chi2, rounds, iters)
+    torch.cuda.synchronize()
+    assert common.launches[name] == 2 and sum(common.launches.values()) == 2
+    for a, b in zip(got, again):
+        assert a.is_cuda and torch.equal(a, b) and (a.numel() == 0 or a.data_ptr() != b.data_ptr())
+    assert got.n_inliers.dtype == torch.int64 and got.inlier.dtype == torch.bool
+    _assert_pose_close(got, _pose(p, chi2, rounds, iters, pose_only.pose_optimization_plain))
+    return got
+
+
+@pytest.mark.parametrize("stereo", [False, True], ids=["mono", "stereo"])
+@pytest.mark.parametrize("rounds,iters", [(2, 6), (4, 10)])
+@pytest.mark.parametrize("n", [2048, 1024, 1000, 37])
+def test_pose_kernel_matches_plain_and_float64_reference(cuda, stereo, rounds, iters, n):
+    from bench_port.reference import pose as ref_pose
+
+    p = make_pose_problem(seed=n + rounds, n=n, stereo=stereo, device=cuda)
+    chi2 = 7.815 if stereo else 5.991
+    got = _pose_checks(p, chi2, rounds, iters)
+    cam = dict(fx=p["fx"], fy=p["fy"], cx=p["cx"], cy=p["cy"], bf=p["bf"])
+    R, t, inlier, _ = ref_pose.pose_optimization(p["R0"], p["t0"], p["X"], p["uv"], p["inv_sigma2"], p["valid"],
+                                                 cam, chi2, rounds, iters, u_right=p["u_right"], mode="f64")
+    assert torch.equal(got.inlier, inlier)
+    assert float((got.R.double() - R).abs().max()) < 1e-4 and float((got.t.double() - t).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("stereo", [False, True], ids=["mono", "stereo"])
+@pytest.mark.parametrize("case", list(POSE_HARD))
+def test_pose_kernel_hard_cases(cuda, stereo, case):
+    p = make_pose_problem(**{"seed": 7, "n": 1024, "stereo": stereo, "device": cuda, **POSE_HARD[case]})
+    got = _pose_checks(p, 7.815 if stereo else 5.991, 2, 6)
+    if case in ("none-valid", "no-observation"):
+        assert int(got.n_inliers) == 0 and float(got.cost) == 0.0 and torch.equal(got.t, p["t0"])
+    else:
+        assert int(got.n_inliers) > 0.5 * int(p["valid"].sum())
+
+
+def test_pose_kernel_raises_on_what_it_does_not_take(cuda):
+    p = make_pose_problem(seed=1, n=64, stereo=True, device=cuda)
+    args = [p[k] for k in ("R0", "t0", "X", "uv", "inv_sigma2", "valid")]
+    cam = (p["fx"], p["fy"], p["cx"], p["cy"], 5.991, 2, 6)
+    bad = {2: p["X"].double(), 3: p["uv"].t().contiguous().t(), 4: p["inv_sigma2"][:63],
+           5: p["valid"].to(torch.uint8), 0: p["R0"].cpu(), 1: p["t0"].reshape(1, 3)}
+    assert not bad[3].is_contiguous()
+    for i, x in bad.items():
+        with pytest.raises(ValueError):
+            pose_kernel.pose_lm(*args[:i], x, *args[i + 1 :], *cam)
+    with pytest.raises(ValueError):
+        pose_kernel.pose_lm(*args, *cam, u_right=None, bf=60.0, stereo=True)
+    with pytest.raises(ValueError):
+        pose_kernel.pose_lm(*args, p["fx"], p["fy"], p["cx"], p["cy"], 5.991, -1, 6)
+    with pytest.raises(ValueError):
+        pose_kernel.pose_lm(*[a.cpu() for a in args], *cam)
+
+
+# ---------------------------------------------------------------------------
 # the batched paths
 # ---------------------------------------------------------------------------
 
@@ -775,6 +870,7 @@ def test_track_batch_on_the_card_follows_the_cpu_engine(cuda):
     engines = {}
     for dev in ("cpu", cuda):
         eng = Engine(cfg, device=dev)
+        common.reset_launch_counts()
         # both engines draw the same two-view minimal sets
         eng._gen = torch.Generator(device="cpu").manual_seed(cfg.n_features)
         for i in range(0, N, B):
@@ -787,6 +883,10 @@ def test_track_batch_on_the_card_follows_the_cpu_engine(cuda):
     assert len(b.trajectory) == N and b.state == OK and a.kf_count == b.kf_count
     ok = np.array([r.state == OK for r in a.trajectory])
     assert float(np.abs(a.positions[ok] - b.positions[ok]).max()) < 5e-3
+    # the card's engine ran each tracked frame's two pose optimizations as pose LM launches
+    first_ok = int(np.argmax(ok))
+    assert common.launches["pose_lm"] >= 2 * int(ok[first_ok + 1 :].sum()) > 0
+    assert common.launches["pose_lm_stereo"] == 0
 
 
 def test_pose_graph_on_the_card_follows_the_cpu(cuda):

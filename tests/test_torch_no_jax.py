@@ -5,8 +5,9 @@ A child interpreter in which ``import jax``, ``import dialog_tpu``,
 ``dialog_tpu_torch``, every one of its submodules and ``chip_smoke``, then
 extracts features from a 160x120 image with the port's plain frontend (one
 image and a batch of two), trains and queries a small vocabulary, solves a
-PnP problem, a Sim3 RANSAC problem, a seeded Sim3 pose graph and a seeded BA
-problem by the Schur PCG, folds the result into a map, runs a block BA on a
+PnP problem, a seeded pose problem (the pose LM's plain loop), a Sim3
+RANSAC problem, a seeded Sim3 pose graph and a seeded BA problem by the
+Schur PCG, folds the result into a map, runs a block BA on a
 small corridor map, decodes a PNG that ``write_png`` wrote, calls the
 reference's last public names that the port took over (``empty_frame``,
 ``inv3x3``, ``gt_relative_pose``, ``best_covisible``,
@@ -53,7 +54,10 @@ assert torch.equal(fb.desc[0], fr.desc) and fb.desc.shape == (2, 160, 8)
 voc = vocab.train_vocab(fr.desc, fr.valid, fr.desc[:16].clone(), n_words=16, iters=2)
 assert int(vocab.quantize(voc, fr.desc, fr.valid).max()) <= 16
 assert abs(float(vocab.bow_vector(voc, fr.desc, fr.valid).sum()) - 1.0) < 1e-5
-assert {"dialog_tpu_torch.vocab", "dialog_tpu_torch.pnp"} <= set(names)
+assert {"dialog_tpu_torch.vocab", "dialog_tpu_torch.pnp", "dialog_tpu_torch.kernels.pose"} <= set(names)
+from dialog_tpu_torch.optim import pose_only, synth_problem as sp
+pp = sp.make_pose_problem(seed=0, n=40, device="cpu")
+assert int(pose_only.pose_optimization(**pp, rounds=2, iters=6).n_inliers) > 20
 X = torch.rand(40, 3) + torch.tensor([0.0, 0.0, 4.0])
 uv = torch.stack([130.0 * X[:, 0] / X[:, 2] + 80.0, 130.0 * X[:, 1] / X[:, 2] + 60.0], -1)
 ok = torch.ones(40, dtype=torch.bool)
