@@ -103,24 +103,25 @@ def spawn_depth_landmarks(m: MapState, slot, cfg: EngineConfig) -> MapState:
     every valid feature without a landmark whose depth is below
     ``th_depth x baseline`` (reference: Tracking::CreateNewKeyFrame's close
     points, and the whole of StereoInitialization for the first keyframe)."""
-    kfs = m.kfs
-    L = m.lms.xyz.shape[0]
-    dev = kfs.uv.device
-    depth = kfs.depth[slot]
-    # the close-point bound in f32, as the reference computes it
-    close = cfg.th_depth * torch.clamp(torch.tensor(cfg.baseline, dtype=torch.float32, device=dev), min=1e-6)
-    cand = kfs.feat_valid[slot] & (kfs.obs_lm[slot] < 0) & (depth > 0.0) & (depth < close)
-    R, t = kfs.R[slot], kfs.t[slot]
-    c = torch.tensor([cfg.cx, cfg.cy], dtype=torch.float32, device=dev)
-    f = torch.tensor([cfg.fx, cfg.fy], dtype=torch.float32, device=dev)
-    xn = (kfs.uv[slot] - c) / f
-    Xc = torch.cat([xn * depth[:, None], depth[:, None]], dim=-1)
-    Rinv, tinv = geo.se3_inv(R, t)
-    Xw = geo.se3_apply(Rinv, tinv, Xc)
-    m, slot_of = alloc_landmarks(m, Xw, kfs.desc[slot], kfs.octave[slot], cand, slot, -R.T @ t, cfg)
-    obs_lm = _set_row(m.kfs.obs_lm, slot, torch.where(slot_of < L, slot_of, m.kfs.obs_lm[slot]))
-    lms = m.lms._replace(n_obs=ops.scatter_add(m.lms.n_obs, slot_of, 1))
-    return m._replace(kfs=m.kfs._replace(obs_lm=obs_lm), lms=lms)
+    with span("slam::depth_spawn"):
+        kfs = m.kfs
+        L = m.lms.xyz.shape[0]
+        dev = kfs.uv.device
+        depth = kfs.depth[slot]
+        # the close-point bound in f32, as the reference computes it
+        close = cfg.th_depth * torch.clamp(torch.tensor(cfg.baseline, dtype=torch.float32, device=dev), min=1e-6)
+        cand = kfs.feat_valid[slot] & (kfs.obs_lm[slot] < 0) & (depth > 0.0) & (depth < close)
+        R, t = kfs.R[slot], kfs.t[slot]
+        c = torch.tensor([cfg.cx, cfg.cy], dtype=torch.float32, device=dev)
+        f = torch.tensor([cfg.fx, cfg.fy], dtype=torch.float32, device=dev)
+        xn = (kfs.uv[slot] - c) / f
+        Xc = torch.cat([xn * depth[:, None], depth[:, None]], dim=-1)
+        Rinv, tinv = geo.se3_inv(R, t)
+        Xw = geo.se3_apply(Rinv, tinv, Xc)
+        m, slot_of = alloc_landmarks(m, Xw, kfs.desc[slot], kfs.octave[slot], cand, slot, -R.T @ t, cfg)
+        obs_lm = _set_row(m.kfs.obs_lm, slot, torch.where(slot_of < L, slot_of, m.kfs.obs_lm[slot]))
+        lms = m.lms._replace(n_obs=ops.scatter_add(m.lms.n_obs, slot_of, 1))
+        return m._replace(kfs=m.kfs._replace(obs_lm=obs_lm), lms=lms)
 
 
 def _fundamental_from_poses(R1, t1, R2, t2, Kmat):

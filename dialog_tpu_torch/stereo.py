@@ -15,6 +15,7 @@ import torch
 from . import matching
 from .config import EngineConfig
 from .containers import FrameArrays
+from .instrument import span
 
 SAD_W = 5       # half patch for SAD refinement (11x11, as the reference)
 SAD_L = 5       # search slide +-5 px
@@ -28,34 +29,35 @@ def _sad_refine(img_l: torch.Tensor, img_r: torch.Tensor, uv_l: torch.Tensor, uR
     into the image as the reference clamps them. Returns (uR f32[N], ok
     bool[N]); a best offset at either end of the slide fails ``ok``. With a
     leading B on every argument (images [B, H, W]), on both results too."""
-    H, W = img_l.shape[-2:]
-    P = 2 * SAD_W + 1
-    WIDE = P + 2 * SAD_L
-    dev = img_l.device
-    xl = torch.round(uv_l[..., 0]).to(torch.int64)
-    yl = torch.round(uv_l[..., 1]).to(torch.int64)
-    xr = torch.round(uR0).to(torch.int64)
-    rows = torch.clamp(yl - SAD_W, 0, H - P)[..., None] + torch.arange(P, device=dev)        # [N, P]
-    cols_l = torch.clamp(xl - SAD_W, 0, W - P)[..., None] + torch.arange(P, device=dev)      # [N, P]
-    cols_r = torch.clamp(xr - SAD_W - SAD_L, 0, W - WIDE)[..., None] + torch.arange(WIDE, device=dev)
-    if img_l.dim() == 2:
-        at = (rows[..., :, None],)
-    else:
-        at = (torch.arange(img_l.shape[0], device=dev)[:, None, None, None], rows[..., :, None])
-    patch_l = img_l[at + (cols_l[..., None, :],)]                                            # [N, P, P]
-    strip_r = img_r[at + (cols_r[..., None, :],)]                                            # [N, P, WIDE]
-    windows = strip_r.unfold(-1, P, 1)                                                       # [N, P, 2L+1, P]
-    sads = torch.abs(patch_l[..., :, None, :] - windows).sum(dim=(-3, -1))                  # [N, 2L+1]
-    best = torch.argmin(sads, dim=-1)
-    at_edge = (best == 0) | (best == 2 * SAD_L)
-    b = torch.clamp(best, 1, 2 * SAD_L - 1)
-    s_m = torch.gather(sads, -1, (b - 1)[..., None])[..., 0]
-    s_0 = torch.gather(sads, -1, b[..., None])[..., 0]
-    s_p = torch.gather(sads, -1, (b + 1)[..., None])[..., 0]
-    denom = torch.clamp(s_m + s_p - 2.0 * s_0, min=1e-6)
-    delta = torch.clamp(0.5 * (s_m - s_p) / denom, -1.0, 1.0)
-    uR = xr.to(torch.float32) + (b - SAD_L).to(torch.float32) + delta
-    return uR, ok & ~at_edge
+    with span("slam::sad_refine"):
+        H, W = img_l.shape[-2:]
+        P = 2 * SAD_W + 1
+        WIDE = P + 2 * SAD_L
+        dev = img_l.device
+        xl = torch.round(uv_l[..., 0]).to(torch.int64)
+        yl = torch.round(uv_l[..., 1]).to(torch.int64)
+        xr = torch.round(uR0).to(torch.int64)
+        rows = torch.clamp(yl - SAD_W, 0, H - P)[..., None] + torch.arange(P, device=dev)        # [N, P]
+        cols_l = torch.clamp(xl - SAD_W, 0, W - P)[..., None] + torch.arange(P, device=dev)      # [N, P]
+        cols_r = torch.clamp(xr - SAD_W - SAD_L, 0, W - WIDE)[..., None] + torch.arange(WIDE, device=dev)
+        if img_l.dim() == 2:
+            at = (rows[..., :, None],)
+        else:
+            at = (torch.arange(img_l.shape[0], device=dev)[:, None, None, None], rows[..., :, None])
+        patch_l = img_l[at + (cols_l[..., None, :],)]                                            # [N, P, P]
+        strip_r = img_r[at + (cols_r[..., None, :],)]                                            # [N, P, WIDE]
+        windows = strip_r.unfold(-1, P, 1)                                                       # [N, P, 2L+1, P]
+        sads = torch.abs(patch_l[..., :, None, :] - windows).sum(dim=(-3, -1))                  # [N, 2L+1]
+        best = torch.argmin(sads, dim=-1)
+        at_edge = (best == 0) | (best == 2 * SAD_L)
+        b = torch.clamp(best, 1, 2 * SAD_L - 1)
+        s_m = torch.gather(sads, -1, (b - 1)[..., None])[..., 0]
+        s_0 = torch.gather(sads, -1, b[..., None])[..., 0]
+        s_p = torch.gather(sads, -1, (b + 1)[..., None])[..., 0]
+        denom = torch.clamp(s_m + s_p - 2.0 * s_0, min=1e-6)
+        delta = torch.clamp(0.5 * (s_m - s_p) / denom, -1.0, 1.0)
+        uR = xr.to(torch.float32) + (b - SAD_L).to(torch.float32) + delta
+        return uR, ok & ~at_edge
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -72,24 +74,25 @@ def stereo_match_frames(left: FrameArrays, right: FrameArrays, cfg: EngineConfig
     feature's scale, disparity in (0.1, bf/baseline). With both images the
     matched right-x is refined to sub-pixel by row SAD. With a leading B on
     every leaf of both frames (and images [B, H, W]) it matches B pairs at once."""
-    # max disparity bf / minZ with minZ = baseline, in f32 as the reference
-    max_disp = _f32(cfg.bf, left.uv) / torch.clamp(_f32(cfg.baseline, left.uv), min=1e-6)
-    dist = matching.hamming_distance_matrix(left.desc, right.desc)
-    scale_l = torch.pow(_f32(cfg.scale_factor, left.uv), left.octave.to(torch.float32))
-    row_ok = torch.abs(left.uv[..., :, None, 1] - right.uv[..., None, :, 1]) <= 2.0 * scale_l[..., :, None]
-    disp = left.uv[..., :, None, 0] - right.uv[..., None, :, 0]
-    disp_ok = (disp > 0.1) & (disp < max_disp)
-    oct_ok = torch.abs(left.octave[..., :, None] - right.octave[..., None, :]) <= 1
-    gated = torch.where(row_ok & disp_ok & oct_ok, dist, matching.MAX_DIST)
-    match_r, _ = matching.match_mutual(gated, left.valid, right.valid, max_dist=cfg.th_high, ratio=1.0)
-    ok = match_r >= 0
-    uR = torch.gather(right.uv[..., 0], -1, torch.clamp(match_r, 0, right.uv.shape[-2] - 1).long())
-    if img_left is not None and img_right is not None:
-        uR, ok = _sad_refine(img_left, img_right, left.uv_raw, uR, ok)
-    d = left.uv[..., 0] - uR
-    ok = ok & (d > 0.1) & (d < max_disp)
-    depth = torch.where(ok, _f32(cfg.bf, d) / torch.clamp(d, min=0.1), -1.0)
-    return left._replace(u_right=torch.where(ok, uR, -1.0), depth=depth)
+    with span("slam::stereo_match"):
+        # max disparity bf / minZ with minZ = baseline, in f32 as the reference
+        max_disp = _f32(cfg.bf, left.uv) / torch.clamp(_f32(cfg.baseline, left.uv), min=1e-6)
+        dist = matching.hamming_distance_matrix(left.desc, right.desc)
+        scale_l = torch.pow(_f32(cfg.scale_factor, left.uv), left.octave.to(torch.float32))
+        row_ok = torch.abs(left.uv[..., :, None, 1] - right.uv[..., None, :, 1]) <= 2.0 * scale_l[..., :, None]
+        disp = left.uv[..., :, None, 0] - right.uv[..., None, :, 0]
+        disp_ok = (disp > 0.1) & (disp < max_disp)
+        oct_ok = torch.abs(left.octave[..., :, None] - right.octave[..., None, :]) <= 1
+        gated = torch.where(row_ok & disp_ok & oct_ok, dist, matching.MAX_DIST)
+        match_r, _ = matching.match_mutual(gated, left.valid, right.valid, max_dist=cfg.th_high, ratio=1.0)
+        ok = match_r >= 0
+        uR = torch.gather(right.uv[..., 0], -1, torch.clamp(match_r, 0, right.uv.shape[-2] - 1).long())
+        if img_left is not None and img_right is not None:
+            uR, ok = _sad_refine(img_left, img_right, left.uv_raw, uR, ok)
+        d = left.uv[..., 0] - uR
+        ok = ok & (d > 0.1) & (d < max_disp)
+        depth = torch.where(ok, _f32(cfg.bf, d) / torch.clamp(d, min=0.1), -1.0)
+        return left._replace(u_right=torch.where(ok, uR, -1.0), depth=depth)
 
 
 def extract_and_match_stereo_batch(imgs_l: torch.Tensor, imgs_r: torch.Tensor, cfg: EngineConfig) -> FrameArrays:

@@ -127,11 +127,15 @@ class Engine:
         # a vocabulary) and those that succeeded, the batches that lost a frame,
         # the frames recorded LOST on any path, the frames the batched entry
         # tracked one by one, each keyframe that tracking inserted under the
-        # first trigger that took it (weak, starving, stale), and the
-        # vocabulary's trainings.
+        # first trigger that took it (weak, starving, stale), the
+        # vocabulary's trainings, and on a stereo rig the valid left features
+        # of the frames tracked and those with a right-image match (summed on
+        # the device, ``_stereo_acc``, and read in by ``flush``).
         self.stats = {"lm_dropped": 0, "kf_slot_full": 0, "gba_obs_dropped": 0, "gba_runs": 0,
                       "relocalizations": 0, "reloc_attempts": 0, "lost_batched": 0, "lost_frames": 0,
-                      "retracked": 0, "kf_weak": 0, "kf_starving": 0, "kf_stale": 0, "vocab_trains": 0}
+                      "retracked": 0, "kf_weak": 0, "kf_starving": 0, "kf_stale": 0, "vocab_trains": 0,
+                      "stereo_features": 0, "stereo_matched": 0}
+        self._stereo_acc: Optional[torch.Tensor] = None
         self.logger = None
         self._init_frame: Optional[FrameArrays] = None
         self._init_ts = 0.0
@@ -191,6 +195,7 @@ class Engine:
         left = extract_features(img_left, self.cfg)
         right = extract_features(img_right, self.cfg)
         left = stereo_match_frames(left, right, self.cfg, img_left=img_left, img_right=img_right)
+        self._count_stereo(left)
         return self.track_features(self._undistort(left), timestamp)
 
     def track_rgbd(self, img, depth_img, timestamp: float) -> FrameRecord:
@@ -289,6 +294,7 @@ class Engine:
         (possibly none)."""
         with span("slam::track_batch"):
             B = len(timestamps)
+            self._count_stereo(frames)
             if self.state == OK:
                 # an in-flight global BA advances by one chunk; its device work
                 # queues between the batches' dispatches
@@ -326,6 +332,24 @@ class Engine:
             det = None if det is None else (det[0], det[3])
             self._pending_b.append((frames, [float(t) for t in timestamps], fids, self.ref_kf, lm_l, pull, det))
             return out
+
+    def _count_stereo(self, frames: FrameArrays) -> None:
+        """On a stereo rig, add the frames' valid left features and those with
+        a right-image match to the device-side counts; no host sync."""
+        if self.cfg.sensor != Sensor.STEREO or self.cfg.bf <= 0:
+            return
+        v = frames.valid
+        n = torch.stack([v.sum(), (v & (frames.u_right >= 0)).sum()])
+        self._stereo_acc = n if self._stereo_acc is None else self._stereo_acc + n
+
+    def _read_stereo_counts(self) -> None:
+        """Move the device-side stereo counts into ``stats`` (one read-back)."""
+        if self._stereo_acc is None:
+            return
+        n_features, n_matched = self._stereo_acc.tolist()
+        self._stereo_acc = None
+        self.stats["stereo_features"] += n_features
+        self.stats["stereo_matched"] += n_matched
 
     def _retrack(self, items) -> list[FrameRecord]:
         """Frames that the batched entry sends through the per-frame path, as
@@ -413,7 +437,8 @@ class Engine:
         self.flush()
 
     def flush(self) -> None:
-        """Drain the pipeline (call before reading the trajectory)."""
+        """Drain the pipeline (call before reading the trajectory or
+        ``stats``: the stereo counts are read in here)."""
         while self._pending:
             self._resolve_oldest()
         while self._pending_b:
@@ -421,6 +446,7 @@ class Engine:
         while self._gba is not None:
             self._gba_tick()
         self._dev_state = None
+        self._read_stereo_counts()
 
     def _resolve_oldest(self) -> FrameRecord:
         frame, ts, fid, ref_launch, R_d, t_d, lm_ids_d, pull = self._pending.pop(0)

@@ -13,6 +13,13 @@
 * A blanked stretch of frames counts a batch lost, its frames LOST and
   re-tracked one by one, and relocalization attempts; each keyframe that
   tracking inserted counts once under one trigger.
+* On rendered stereo pairs (the KITTI00 preset at half size) the batched
+  stereo frontend records one ``slam::stereo_match`` and one
+  ``slam::sad_refine`` a batch, and ``slam::depth_spawn`` once a keyframe
+  (the stereo initialization's included); ``stereo_features`` and
+  ``stereo_matched`` count the valid left features and those with a right-x
+  of the frames tracked, through ``track_batch`` and ``track_stereo``. The
+  mono path records none of the three spans, and its counts stay 0.
 """
 
 import numpy as np
@@ -21,10 +28,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from dialog_tpu_torch import instrument
-from dialog_tpu_torch.config import EngineConfig
+from dialog_tpu_torch.config import KITTI00, EngineConfig, Sensor
 from dialog_tpu_torch.containers import FrameArrays
 from dialog_tpu_torch.datasets import synth
 from dialog_tpu_torch.frontend import extract_features, extract_features_batch
+from dialog_tpu_torch.profile_main_path import render_stereo_frames
+from dialog_tpu_torch.stereo import extract_and_match_stereo_batch, stereo_match_frames
 from dialog_tpu_torch.system import LOST, OK, Engine
 
 torch.set_num_threads(2)
@@ -190,3 +199,90 @@ def test_keyframe_triggers_sum_to_the_keyframes_after_initialization(request, ru
     st = eng.stats
     assert st["kf_weak"] + st["kf_starving"] + st["kf_stale"] == eng.kf_count - INIT_KFS > 0
     assert st["vocab_trains"] >= 1
+
+
+STEREO_CFG = EngineConfig(width=620, height=188, fx=KITTI00.fx / 2, fy=KITTI00.fy / 2, cx=KITTI00.cx / 2,
+                          cy=KITTI00.cy / 2, bf=KITTI00.bf / 2, th_depth=KITTI00.th_depth, sensor=Sensor.STEREO,
+                          n_features=600, max_features=640, max_keyframes=32, max_landmarks=4096,
+                          max_local_lms=1024, max_local_kfs=6, max_fixed_kfs=4, max_obs_per_lm=8,
+                          max_frames_between_kf=4, vocab_words=128)
+STEREO_N = 12
+STEREO_SPANS = ("slam::stereo_match", "slam::sad_refine", "slam::depth_spawn")
+
+
+def _counts(frames):
+    """(valid left features, those with a right-x) of a frame or a batch."""
+    return int(frames.valid.sum()), int((frames.valid & (frames.u_right >= 0)).sum())
+
+
+@pytest.fixture(scope="module")
+def stereo_pairs():
+    _, pairs = render_stereo_frames(STEREO_CFG, STEREO_N)
+    return torch.stack([torch.as_tensor(l) for l, _ in pairs]), torch.stack([torch.as_tensor(r) for _, r in pairs])
+
+
+@pytest.fixture(scope="module")
+def stereo_traced(stereo_pairs):
+    """The stereo pairs in batches of B through the batched stereo frontend and ``track_batch``,
+    all under the profiler; the first batch initializes frame by frame."""
+    left, right = stereo_pairs
+    eng = Engine(STEREO_CFG, device="cpu")
+    eng.loop_closing_enabled = False
+    fed = [0, 0]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for i in range(0, STEREO_N, B):
+            batch = extract_and_match_stereo_batch(left[i : i + B], right[i : i + B], STEREO_CFG)
+            fed = [a + b for a, b in zip(fed, _counts(batch))]
+            eng.track_batch(batch, [j / 10.0 for j in range(i, i + B)])
+        eng.flush()
+    return eng, _spans(prof), fed
+
+
+def test_the_batched_stereo_path_records_its_spans(stereo_traced):
+    eng, spans, _ = stereo_traced
+    batches = STEREO_N // B
+    assert _count(spans, "slam::stereo_match") == _count(spans, "slam::sad_refine") == batches
+    assert _inside(spans, "slam::sad_refine", "slam::stereo_match")
+    assert [r.state for r in eng.trajectory] == [OK] * STEREO_N
+    # one a keyframe: the stereo initialization's first, then one inside each keyframe's insertion
+    assert _count(spans, "slam::depth_spawn") == eng.kf_count >= 3
+    inserts = [s for s in spans if s[0] == "slam::kf_insert"]
+    in_insert = [d for d in spans
+                 if d[0] == "slam::depth_spawn" and any(p[1] <= d[1] and d[2] <= p[2] for p in inserts)]
+    assert len(in_insert) == len(inserts) == eng.kf_count - 1
+
+
+def test_the_mono_path_records_no_stereo_span(traced, occluded):
+    names = {s[0] for s in traced[1] + occluded[1]}
+    assert names and not names & set(STEREO_SPANS)
+
+
+def test_the_stereo_counts_are_the_frames_tracked(stereo_traced):
+    eng, _, (n_features, n_matched) = stereo_traced
+    st = eng.stats
+    assert (st["stereo_features"], st["stereo_matched"]) == (n_features, n_matched)
+    assert 0 < st["stereo_matched"] <= st["stereo_features"]
+    assert eng._stereo_acc is None
+
+
+def test_track_stereo_counts_each_pair(stereo_pairs):
+    left, right = stereo_pairs
+    eng = Engine(STEREO_CFG, device="cpu")
+    eng.loop_closing_enabled = False
+    want = [0, 0]
+    for i in range(2):
+        eng.track_stereo(left[i], right[i], i / 10.0)
+        f = stereo_match_frames(extract_features(left[i], STEREO_CFG), extract_features(right[i], STEREO_CFG),
+                                STEREO_CFG, img_left=left[i], img_right=right[i])
+        want = [a + b for a, b in zip(want, _counts(f))]
+    assert eng._stereo_acc is not None   # summed on the device, read at the flush
+    eng.flush()
+    assert [eng.stats["stereo_features"], eng.stats["stereo_matched"]] == want
+
+
+@pytest.mark.parametrize("run", ["plain", "occluded"])
+def test_the_mono_path_counts_no_stereo_feature(request, run):
+    eng = request.getfixturevalue(run)
+    eng = eng[0] if isinstance(eng, tuple) else eng
+    assert eng.stats["stereo_features"] == eng.stats["stereo_matched"] == 0
+    assert eng._stereo_acc is None
