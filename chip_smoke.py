@@ -148,7 +148,9 @@ every value finite and above 0, ``vs_baseline`` the value over 30 or 15 as
 rounded; on each workload's ``#`` line: OK at the end, an OK share above 0.9
 outside the blanked frames, at least 4 keyframes, a recovery from the blanked
 frames (mono: by relocalization), kernel A once per batched frontend call,
-``hamming_mutual`` and the workload's kernel C variant launched, and an ATE
+``hamming_mutual`` and the workload's kernel C variant launched,
+``project_gate`` and ``invert_matches`` three times a batched frame (less
+two batches for each recovery, fed per frame), and an ATE
 below twice the JAX engine's on the same frames under the same schedule
 (``tools/reference_ate.py bench_*``). A non-zero exit fails the script.
 Then ``bench_reloc_margin`` replays ``tum_mono_kf10``'s warm-up in this
@@ -279,6 +281,8 @@ DEVICE_KERNELS = {
     "schur_reduce_frozen": ("schur_obs", "schur_cams"),
     "pose_lm": ("pose_lm_kernel",),
     "pose_lm_stereo": ("pose_lm_kernel",),
+    "project_gate": ("project_gate_kernel",),
+    "invert_matches": ("invert_matches_kernel",),
 }
 HOST_PACED = 1.5        # a wrapper loop this many times slower than the device's own time is paced by the host
 # the cli phase: the mono, RGB-D and stereo paths' frames as TUM and KITTI sequences on disk, and a EuRoC one
@@ -311,6 +315,15 @@ POSE_N = 1024
 POSE_SHAPES = ((2, 6), (4, 10))
 POSE_TOL = 1e-4
 POSE_SEED = 21
+# the projection glue's kernels: (L, the motion search's N, max_local_lms, F) at TUM1's and KITTI00's capacities,
+# uv against the plain version (px, points 1 m or more ahead; tests/test_torch_project_kernel.py holds the rest),
+# the problems' seed
+PROJECT_SHAPES = {"tum1": (32768, 1024, 8192, 1024), "kitti00": (262144, 2048, 8192, 2048)}
+PROJECT_UV_TOL = 1e-3
+# project_gate may differ from its plain version only this close to a boundary: a gate's (relative to its size),
+# and the octave's unrounded value to an integer (tests/test_torch_project_kernel.py's GATE_NEAR, OCTAVE_NEAR)
+PROJECT_GATE_NEAR, PROJECT_OCTAVE_NEAR = 1e-4, 1e-5
+PROJECT_SEED = 31
 
 KERNELS = {
     "fast_nms_rank": ("dialog_tpu_torch/csrc/fast.cu", "dialog_tpu/kernels/fast.py:118"),
@@ -322,6 +335,10 @@ KERNELS = {
     "schur_reduce_frozen": ("dialog_tpu_torch/csrc/schur.cu", "dialog_tpu/kernels/schur.py:293"),
     "pose_lm": ("dialog_tpu_torch/csrc/pose.cu", "none: XLA's program of dialog_tpu/optim/pose_only.py:78"),
     "pose_lm_stereo": ("dialog_tpu_torch/csrc/pose.cu", "none: XLA's program of dialog_tpu/optim/pose_only.py:78"),
+    "project_gate": ("dialog_tpu_torch/csrc/project.cu", "none: XLA's program of dialog_tpu/tracking.py:43 "
+                     "_project_landmarks with the local-map mask and match_projected's radius"),
+    "invert_matches": ("dialog_tpu_torch/csrc/project.cu", "none: XLA's program of the inversion in "
+                       "dialog_tpu/tracking.py:112 and :214 with the merge"),
 }
 
 
@@ -754,6 +771,7 @@ def run_batch_path(name, dev):
     Returns a dict: scene, frames, engine, twin, launches, counts (batches,
     pulls, relocalization calls and successes), frames/s of both.
     """
+    from dialog_tpu_torch import tracking
     from dialog_tpu_torch.kernels import common
     from dialog_tpu_torch.system import Engine
 
@@ -769,24 +787,36 @@ def run_batch_path(name, dev):
         return eng
 
     eng = engine()
-    counts = {"batches": 0, "pulls": 0, "reloc_calls": 0, "reloc_recovered": 0, "vocab_at_occlusion": False}
+    counts = {"batches": 0, "pulls": 0, "reloc_calls": 0, "reloc_recovered": 0, "vocab_at_occlusion": False,
+              "multi_frames": 0}
     _counted(eng, "_try_relocalize", counts, "reloc_calls")
     _counted(eng, "_try_relocalize", counts, "reloc_recovered", hit=lambda rec: rec is not None)
     _counted(eng, "_start_pull", counts, "pulls")
+    multi = tracking.fused_track_multi
+
+    def counted_multi(m, lm_ids0, batch, *a, **k):
+        counts["multi_frames"] += batch.uv.shape[0]
+        return multi(m, lm_ids0, batch, *a, **k)
+
     common.reset_launch_counts()
     track_frames(eng, method, frames, 0, n_single, fps_in)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in range(n_single, n_frames - BATCH + 1, BATCH):
-        if i == occlude_at:
-            counts["vocab_at_occlusion"] = eng._vocab is not None and eng.kf_count >= cfg.vocab_min_kfs
-        batch = extract_batch(cfg, frames, i, dev, blank=BATCH // 2 if i == occlude_at else 0)
-        out = eng.track_batch(batch, [float(i + j) / fps_in for j in range(BATCH)])
-        counts["batches"] += 1
-        if out:
-            say(f"{name} batch at frame {i}: resolved frames {out[0].frame_id}-{out[-1].frame_id} "
-                f"{[r.state for r in out].count('OK')}/{len(out)} OK, tracked={out[-1].n_tracked} kfs={eng.kf_count}")
-    eng.flush()
+    tracking.fused_track_multi = counted_multi
+    try:
+        for i in range(n_single, n_frames - BATCH + 1, BATCH):
+            if i == occlude_at:
+                counts["vocab_at_occlusion"] = eng._vocab is not None and eng.kf_count >= cfg.vocab_min_kfs
+            batch = extract_batch(cfg, frames, i, dev, blank=BATCH // 2 if i == occlude_at else 0)
+            out = eng.track_batch(batch, [float(i + j) / fps_in for j in range(BATCH)])
+            counts["batches"] += 1
+            if out:
+                say(f"{name} batch at frame {i}: resolved frames {out[0].frame_id}-{out[-1].frame_id} "
+                    f"{[r.state for r in out].count('OK')}/{len(out)} OK, tracked={out[-1].n_tracked} "
+                    f"kfs={eng.kf_count}")
+        eng.flush()
+    finally:
+        tracking.fused_track_multi = multi
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(common.launches)
@@ -805,7 +835,9 @@ def check_batch_path(name, run, *, with_scale: bool, ate_gate: float) -> dict:
     the first OK frame, the blanked frames left out; a finite ATE below
     ``ate_gate``; kernel A launched exactly once per batched frontend call
     and once per image fed one by one; ``hamming_mutual`` at least once per
-    tracked frame; kernel C at least once; one pull per batch queued; on the
+    tracked frame; the pose LM twice a tracked frame; ``project_gate`` and
+    ``invert_matches`` three times a frame that went through
+    ``fused_track_multi``; kernel C at least once; one pull per batch queued; on the
     blanked frames LOST records and a relocalization attempt each; where the
     path is long enough for one (``BATCH_PATHS``), a codebook by the blanked
     batch and at least one successful relocalization."""
@@ -850,6 +882,10 @@ def check_batch_path(name, run, *, with_scale: bool, ate_gate: float) -> dict:
     pose = "pose_lm_stereo" if stereo else "pose_lm"
     if launches[pose] < 2 * n_tracked:
         fail(f"{name}: {pose} launched {launches[pose]} times for {n_tracked} tracked frames (two a frame)")
+    for k in ("project_gate", "invert_matches"):
+        if launches[k] < 3 * counts["multi_frames"]:
+            fail(f"{name}: {k} launched {launches[k]} times for {counts['multi_frames']} frames tracked in batches "
+                 f"(three searches a frame)")
     if counts["pulls"] > counts["batches"] or counts["pulls"] < 1:
         fail(f"{name}: {counts['pulls']} host pulls for {counts['batches']} batches")
     if not blanked <= set(out["lost_frames"]):
@@ -2799,6 +2835,8 @@ def bench_reloc_margin(dev, smi, seed: int | None = None, warm_end: int = BENCH_
 def check_bench(lines) -> dict:
     """The bench's output held to bench.py's contract and each workload's
     ``#`` line to the bench gates (module docstring)."""
+    from dialog_tpu_torch.bench import B as bench_batch
+
     metrics = [json.loads(x) for x in lines if x.startswith("{")]
     notes = {}
     for x in lines:
@@ -2846,6 +2884,13 @@ def check_bench(lines) -> dict:
         for k in ("hamming_mutual", c_kernel, "pose_lm" if c_kernel == "schur_reduce" else "pose_lm_stereo"):
             if launches[k] < 1:
                 fail(f"bench {n}: {k} was not launched")
+        # each batch goes through fused_track_multi's three searches a frame, but those fed while the engine
+        # is not OK: a loss and its recovery (a relocalization, or one found otherwise) take at most two batches
+        batched = bench_batch * (s["frontend_batches"] - 2 * (s["relocalizations"] + s["recovered"]))
+        for k in ("project_gate", "invert_matches"):
+            if launches[k] < 3 * batched:
+                fail(f"bench {n}: {k} launched {launches[k]} times for {s['frontend_batches']} batches with "
+                     f"{s['relocalizations'] + s['recovered']} recoveries (three searches a batched frame)")
         if not (isinstance(s["ate_m"], float) and s["ate_m"] < 2 * ref):
             fail(f"bench {n}: ATE {s['ate_m']} m not below twice the JAX engine's {ref} m on the same frames")
     return dict(fps={n: metrics[2 * k]["value"] for k, n in enumerate(names)},
@@ -2918,6 +2963,108 @@ def pose_entries(dev) -> dict:
                                            iters=iters, chain_ms=chain)
         times[name] = dict(shape[POSE_SHAPES[0]], rounds4_iters10=shape[POSE_SHAPES[1]])
     return times
+
+
+def _project_problems(dev) -> dict:
+    """(shape name, form) -> the arguments of a ``project_gate`` call at
+    PROJECT_SHAPES: the motion search's (N rows, no frustum gate) and the
+    local-map search's (max_local_lms rows, frustum gate, F features)."""
+    from dialog_tpu_torch.config import KITTI00, TUM1
+    from dialog_tpu_torch.optim.synth_problem import camera, make_projection_problem
+
+    out = {}
+    for name, (L, n_motion, n_local, F) in PROJECT_SHAPES.items():
+        cam = camera(TUM1 if name == "tum1" else KITTI00)
+        out[(name, "motion")] = make_projection_problem(PROJECT_SEED, L, n_motion, 0, cam, False, 15.0, dev)
+        out[(name, "local_map")] = make_projection_problem(PROJECT_SEED, L, n_local, F, cam, True, 6.0, dev)
+    return out
+
+
+def check_project(dev) -> dict:
+    """The projection glue's kernels against their plain versions on the
+    card: ``project_gate`` at each of PROJECT_SHAPES' forms (descriptors,
+    ``free`` and a repeat equal bit for bit, uv within PROJECT_UV_TOL on the
+    points 1 m or more ahead; vis, seen and the octave may differ only on
+    rows within PROJECT_GATE_NEAR of a gate or PROJECT_OCTAVE_NEAR of an
+    octave's boundary, as ``projection_gates`` judges the problem in
+    float64, where either answer is rounding's; and each gate alone rejects
+    some rows of the problem, so a kernel that drops one fails),
+    ``invert_matches`` bit for bit with and without a prior. Returns the
+    largest uv difference and 0.0."""
+    from dialog_tpu_torch.kernels.project import invert_matches, invert_matches_plain, project_gate, project_gate_plain
+    from dialog_tpu_torch.optim.synth_problem import make_match_problem, projection_gates
+
+    err = 0.0
+    for (name, form), p in _project_problems(dev).items():
+        got, again, want = project_gate(**p), project_gate(**p), project_gate_plain(**p)
+        torch.cuda.synchronize()
+        g = projection_gates(p)
+        front = torch.from_numpy(g["z"] >= 1.0).to(dev)
+        e = float((got.uv - want.uv).abs()[front].max())
+        near = torch.from_numpy(g["margin"] <= PROJECT_GATE_NEAR).to(dev)
+        masks = [("vis", got.vis, want.vis, near),
+                 ("octave", got.octave, want.octave, torch.from_numpy(g["octave"] <= PROJECT_OCTAVE_NEAR).to(dev))]
+        if got.seen is not None:
+            masks.append(("seen", got.seen, want.seen, near))
+        flips = {k: int((a != b).sum()) for k, a, b, _ in masks}
+        away = {k: int(((a != b) & ~m).sum()) for k, a, b, m in masks}
+        same = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+        say(f"project_gate {name} {form} N={p['ids'].shape[0]}: max |uv - plain| {e} px (points 1 m ahead), rows "
+            f"that differ {flips}, of them away from any boundary {away}, rows each gate alone rejects "
+            f"{g['alone']}, desc equal {torch.equal(got.desc, want.desc)}, repeat bit for bit {same}")
+        if not (e < PROJECT_UV_TOL and not any(away.values()) and same and torch.equal(got.desc, want.desc)
+                and (got.free is None or torch.equal(got.free, want.free))):
+            fail(f"project_gate {name} {form}: the kernel differs from its plain version")
+        if not all(n > 0 for n in g["alone"].values()):
+            fail(f"project_gate {name} {form}: a gate rejects no row of the problem alone: {g['alone']}")
+        err = max(err, e)
+    for N, F, L in ((1024, 1024, 32768), (8192, 2048, 262144)):
+        for prior in (False, True):
+            q = make_match_problem(PROJECT_SEED, N, F, L, prior, dev)
+            got, want = invert_matches(**q), invert_matches_plain(**q)
+            if not (torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])):
+                fail(f"invert_matches N={N} F={F} prior={prior}: the kernel differs from its plain version")
+    say("invert_matches: bit for bit against its plain version at N=1024 F=1024 and N=8192 F=2048, with and "
+        "without a prior")
+    return {"project_gate": err, "invert_matches": 0.0}
+
+
+def project_bound(p, out) -> dict:
+    """``project_gate``'s least time: the ids, each row's gathered store
+    entries (xyz, desc, dmax, valid; with the frustum gate normal and dmin),
+    the pose, the local-map form's features read once, and the outputs
+    written once, at HBM's rate (a few tens of operations a row)."""
+    n, F = p["ids"].shape[0], 0 if p.get("lm_of_feat") is None else p["lm_of_feat"].shape[0]
+    row = 12 + 32 + 4 + 1 + (16 if p["frustum"] else 0)
+    outs = nbytes(*[x for x in out if x is not None])
+    return bound(4 * n + row * n + 48 + 5 * F + outs, 60 * n)
+
+
+def project_entries(dev) -> dict:
+    """The glue kernels' readings: ``project_gate`` in the local-map form at
+    TUM1's shapes (max_local_lms rows, F 1,024), with ``motion`` (1,024 rows,
+    no frustum gate) and ``kitti00`` (8,192 rows, F 2,048, L 262,144) beside
+    it; ``invert_matches`` over 8,192 rows into 1,024 features with a prior,
+    and ``motion`` (1,024 rows, none)."""
+    from dialog_tpu_torch.kernels.project import invert_matches, invert_matches_plain, project_gate, project_gate_plain
+    from dialog_tpu_torch.optim.synth_problem import make_match_problem
+
+    probs = _project_problems(dev)
+
+    def gate(key):
+        p = probs[key]
+        return entry("project_gate", lambda: project_gate(**p), lambda: project_gate_plain(**p),
+                     project_bound(p, project_gate(**p)), reps=50, rows=p["ids"].shape[0], landmarks=p["xyz"].shape[0])
+
+    def inv(N, F, L, prior):
+        q = make_match_problem(PROJECT_SEED, N, F, L, prior, dev)
+        n_bytes = 4 * N * 2 + (4 * F if prior else 0) + 4 * F + 8
+        return entry("invert_matches", lambda: invert_matches(**q), lambda: invert_matches_plain(**q),
+                     bound(n_bytes, 4 * N + 8 * F), reps=50, rows=N, features=F)
+
+    return {"project_gate": dict(gate(("tum1", "local_map")), motion=gate(("tum1", "motion")),
+                                 kitti00=gate(("kitti00", "local_map"))),
+            "invert_matches": dict(inv(8192, 1024, 32768, True), motion=inv(1024, 1024, 32768, False))}
 
 
 def entry(name, fn, plain, limit, reps=20, **extra) -> dict:
@@ -3013,6 +3160,7 @@ def kernel_times(images, cfg, prob, stereo_cfg, stereo_prob, dev, mono_stack, st
                                 cam_index_ms=time_ms(build_index), solve_iters=c.local_ba_iters)
         t["solve_device_ms"] = t["cam_index_device_ms"] + t["solve_iters"] * t["device_ms"]
     times.update(pose_entries(dev))
+    times.update(project_entries(dev))
     return times
 
 
@@ -3128,6 +3276,8 @@ def main() -> int:
     mark("kernels_ab")
     err_pose = check_pose(dev)
     mark("pose")
+    err_project = check_project(dev)
+    mark("project")
 
     times = kernel_times(images, cfg, prob, seng.cfg, sprob, dev, mono_stack, stereo_stack)
     times["schur_reduce"]["global_ba_C"] = check_schur_large_c(dev, smi)
@@ -3157,7 +3307,8 @@ def main() -> int:
                          dev, smi)
     mark("cli")
     errs = {"fast_nms_rank": err_a, "fast_nms_rank_batch": err_ab, "hamming_best2": err_b, "hamming_mutual": err_m,
-            "schur_reduce": err_c, "schur_reduce_stereo": err_cs, "schur_reduce_frozen": err_cf, **err_pose}
+            "schur_reduce": err_c, "schur_reduce_stereo": err_cs, "schur_reduce_frozen": err_cf, **err_pose,
+            **err_project}
     rels = {"schur_reduce": rel_c, "schur_reduce_stereo": rel_cs, "schur_reduce_frozen": rel_cf}
     by_path = {"mono": launches, "stereo": slaunches, "rgbd": rlaunches, "mono_batch": mb["launches"],
                "stereo_batch": sb["launches"], **{name: run["launches"] for name, run in loop_runs.items()},
@@ -3192,7 +3343,9 @@ def main() -> int:
                       for c, g in t.get("global_ba_C", {}).items())
             + "".join(f"; {g['rounds']}x{g['iters']} at N={g['observations']}: device {g['device_ms']} ms, chain "
                       f"{g['chain_ms']} ms, wrapper loop {g['wrapper_loop_ms']} ms, plain {g['plain_ms']} ms"
-                      for g in ([t, t["rounds4_iters10"]] if "chain_ms" in t else [])))
+                      for g in ([t, t["rounds4_iters10"]] if "chain_ms" in t else []))
+            + "".join(f"; {k}: device {t[k]['device_ms']} ms, wrapper loop {t[k]['wrapper_loop_ms']} ms, plain "
+                      f"{t[k]['plain_ms']} ms, bound {t[k]['bound_ms']} ms" for k in ("motion", "kitti00") if k in t))
     say(f"chip_smoke.py: {time.perf_counter() - t_script:.1f} s in all, the kernels' build included, on {smi}; "
         f"by phase: {json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}), flush=True)

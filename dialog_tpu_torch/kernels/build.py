@@ -49,6 +49,11 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
     "pose": {
         "pose_lm_launch": (_I, [_P] * 7 + [_I] + [_F] * 6 + [_I] * 3 + [_P] * 6),
     },
+    "project": {
+        "project_gate_launch": (_I, [_P, _I] + [_P] * 6 + [_I] + [_P] * 2 + [_F] * 7 + [_I] + [_F] * 2 + [_I]
+                                + [_P] * 2 + [_I] * 2 + [_P] * 8),
+        "invert_matches_launch": (_I, [_P] * 2 + [_I] * 3 + [_P] * 4),
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

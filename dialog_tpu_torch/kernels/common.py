@@ -18,10 +18,11 @@ import torch
 # match of kernel B counts once as hamming_mutual, whatever it launches;
 # kernel A over a batch of images counts apart from kernel A over one image;
 # kernel C with frozen landmarks counts as schur_reduce_frozen, in either variant;
-# the pose LM's stereo form counts apart from its mono form)
+# the pose LM's stereo form counts apart from its mono form; a projection search's
+# glue counts once as project_gate and once as invert_matches, in any form)
 launches: dict[str, int] = {"fast_nms_rank": 0, "fast_nms_rank_batch": 0, "hamming_best2": 0, "hamming_mutual": 0,
                             "schur_reduce": 0, "schur_reduce_stereo": 0, "schur_reduce_frozen": 0,
-                            "pose_lm": 0, "pose_lm_stereo": 0}
+                            "pose_lm": 0, "pose_lm_stereo": 0, "project_gate": 0, "invert_matches": 0}
 
 
 def reset_launch_counts() -> None:

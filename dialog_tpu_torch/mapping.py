@@ -260,13 +260,10 @@ def fuse_landmarks_into_kf(m: MapState, src_kf, dst_kf, cfg: EngineConfig, recou
     ids = kfs.obs_lm[src_kf]
     has = kfs.feat_valid[src_kf] & (ids >= 0)
     ids_s = torch.where(has, ids, L)
-    _, desc, uv_pred, octv, vis = _tracking._project_landmarks(
-        m, ids_s, kfs.R[dst_kf], kfs.t[dst_kf], cfg, frustum=True
-    )
-    match_ft, _ = matching.match_projected(
-        desc, uv_pred, vis, octv,
-        kfs.desc[dst_kf], kfs.uv[dst_kf], kfs.feat_valid[dst_kf], kfs.octave[dst_kf],
-        radius=3.0, scale_factor=cfg.scale_factor, max_dist=cfg.th_low, ratio=1.0,
+    p = _tracking.project_landmarks(m, ids_s, kfs.R[dst_kf], kfs.t[dst_kf], cfg, 3.0, frustum=True)
+    match_ft, _ = matching.mutual_match_fused(
+        p.desc, kfs.desc[dst_kf], p.vis, kfs.feat_valid[dst_kf], uv_a=p.uv, uv_b=kfs.uv[dst_kf],
+        radius2=p.radius2, oct_a=p.octave, oct_b=kfs.octave[dst_kf], octave_band=1, max_dist=cfg.th_low, ratio=1.0,
     )
     ok = match_ft >= 0
     ft = torch.clamp(match_ft, 0, F - 1).long()

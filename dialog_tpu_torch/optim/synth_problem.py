@@ -22,6 +22,11 @@ block bundle adjustment.
 and a start pose off the truth, for the pose LM kernel's checks on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``) and its CPU tests.
 
+``make_projection_problem`` and ``make_match_problem`` build the inputs of
+the projection search's glue kernels (``kernels/project.py``), with points
+planted on and past every gate; ``projection_gates`` judges such a problem in
+float64, for the kernels' checks on the card and the plain versions' CPU tests.
+
 ``make_pose_graph`` builds a seeded Sim3 pose graph of the engine's shape
 (K keyframe slots, K tree + 4K covisibility + 1 loop edges): a ring of
 keyframes whose states carry odometry and scale drift, closed by its loop
@@ -35,7 +40,7 @@ import numpy as np
 import torch
 
 from .. import geometry as geo
-from ..config import KITTI00, EngineConfig
+from ..config import KITTI00, TUM1, EngineConfig
 from ..containers import MapState, empty_map, recount_lm_obs
 from .local_ba import BAProblem
 from .pose_graph import PoseGraphProblem
@@ -182,6 +187,133 @@ def make_pose_problem(seed: int = 0, n: int = 1024, stereo: bool = False, outlie
     return dict(R0=dev(R0), t0=dev(t0), X=dev(X), uv=dev(uv), inv_sigma2=dev(inv_s2), valid=dev(valid),
                 fx=fx, fy=fy, cx=cx, cy=cy, u_right=dev(ur) if stereo else None, bf=bf if stereo else 0.0,
                 use_stereo=stereo)
+
+
+def camera(cfg: EngineConfig) -> dict:
+    """A configuration's pinhole camera and image size, as ``project_gate`` takes them."""
+    return dict(fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy, width=cfg.width, height=cfg.height)
+
+
+def make_projection_problem(seed: int = 0, L: int = 32768, N: int = 1024, F: int = 0, cam: dict | None = None,
+                            frustum: bool = False, radius: float = 6.0, device="cuda") -> dict:
+    """The arguments of one ``kernels.project.project_gate`` call (8 levels at
+    1.2, ``cam`` ``config.TUM1``'s camera unless given): a landmark store of ``L`` slots
+    seen from a random pose, 10% of them invalid. Most points lie 0.5-20 m
+    in front of the camera and up to 40 px off the image, 5% behind it,
+    0.2% at the depth gate (z = 1e-3, 0, -1e-3) and 0.2% exactly on a
+    border (u or v; a gate that rounding may flip either way); dmax
+    is the distance times a power of the scale factor (30% of them jittered
+    by 0.8-1.25), dmin the pyramid's span below, the normals mostly towards
+    the camera. 5% of the points lie beyond their band (dmax 0.55-1 times
+    the distance) and another 5% before it (dmin 0.9-1.6 times the
+    distance), so each distance gate rejects a few percent of the rows.
+    ``N`` ids, 5% at the sentinel L, 3% negative and 1% past L.
+    With ``F``, the local-map form: a third of the features hold a landmark
+    (half of those among the ids, 1% past L), 90% of them valid."""
+    cam = cam or camera(TUM1)
+    sf, levels = 1.2, 8
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=3) * 0.3
+    R, t = geo.se3_exp(torch.from_numpy(np.concatenate([rng.normal(size=3), w]).astype(np.float32)))
+    R, t = R.numpy().astype(np.float64), t.numpy().astype(np.float64)
+    z = rng.uniform(0.5, 20.0, L)
+    u = rng.uniform(-40, cam["width"] + 40, L)
+    v = rng.uniform(-40, cam["height"] + 40, L)
+    edge, on_u = rng.random(L) < 0.002, rng.random(L) < 0.5
+    u = np.where(edge & on_u, rng.choice([0.0, float(cam["width"])], L), u)
+    v = np.where(edge & ~on_u, rng.choice([0.0, float(cam["height"])], L), v)
+    z = np.where(rng.random(L) < 0.05, -z, z)
+    z = np.where(rng.random(L) < 0.002, rng.choice([1e-3, 0.0, -1e-3], L), z)
+    xc = np.stack([(u - cam["cx"]) * z / cam["fx"], (v - cam["cy"]) * z / cam["fy"], z], -1)
+    xyz = ((xc - t) @ R).astype(np.float32)    # R^T (xc - t)
+    centre = -R.T @ t
+    dist = np.linalg.norm(xyz - centre, axis=-1)
+    k = rng.integers(0, levels, L)
+    dmax = dist * sf ** k * np.where(rng.random(L) < 0.3, rng.uniform(0.8, 1.25, L), 1.0)
+    band = rng.random(L)
+    dmax = np.where(band < 0.05, dist * rng.uniform(0.55, 1.0, L), dmax).astype(np.float32)
+    dmin = np.where((band >= 0.05) & (band < 0.1), dist * rng.uniform(0.9, 1.6, L), dmax / sf ** (levels - 1))
+    ray = (xyz - centre) / np.maximum(dist, 1e-9)[:, None]
+    normal = ray + rng.normal(size=(L, 3)) * rng.choice([0.1, 1.5], L)[:, None]
+    ids = rng.integers(0, L, N)
+    pick = rng.random(N)
+    ids = np.where(pick < 0.05, L, ids)
+    ids = np.where((pick >= 0.05) & (pick < 0.08), -rng.integers(1, 9, N), ids)
+    ids = np.where((pick >= 0.08) & (pick < 0.09), L + rng.integers(1, 9, N), ids)
+
+    def dev(x, dt=None):
+        return torch.as_tensor(np.ascontiguousarray(x if dt is None else x.astype(dt))).to(device)
+
+    p = dict(ids=dev(ids, np.int32), xyz=dev(xyz), desc=dev(rng.integers(-2**31, 2**31, (L, 8)), np.int32),
+             dmax=dev(dmax), valid=dev(rng.random(L) >= 0.1), R=dev(R, np.float32), t=dev(t, np.float32), **cam,
+             scale_factor=sf, n_levels=levels, radius=radius,
+             normal=dev(normal / np.linalg.norm(normal, axis=-1, keepdims=True), np.float32),
+             dmin=dev(dmin, np.float32), view_cos_th=0.5, frustum=frustum)
+    if F:
+        own = ids[(ids >= 0) & (ids < L)]
+        lm = np.where(rng.random(F) < 0.5, rng.choice(own, F), rng.integers(0, L, F))
+        lm = np.where(rng.random(F) < 0.33, lm, -1)
+        lm = np.where(rng.random(F) < 0.01, L + 3, lm)
+        p.update(lm_of_feat=dev(lm, np.int32), feat_valid=dev(rng.random(F) >= 0.1))
+    return p
+
+
+def projection_gates(p: dict) -> dict:
+    """A ``make_projection_problem`` judged in float64, per row: ``ok`` (the
+    id inside [0, L) and its landmark valid); ``gates``, each of
+    ``project_gate``'s gates by name and its verdict (``z``, ``u0``, ``u1``,
+    ``v0``, ``v1``; with the frustum gate ``view``, ``dmin``, ``dmax``);
+    ``margin``, the least distance of the gates' quantities to their
+    boundaries, relative to the boundary's size (u and v: to the image's);
+    ``octave``, that of the octave's unrounded value to an integer; ``z``,
+    the depth; ``scale``, |X| + |t|, the size of R X + t's terms; ``alone``,
+    for each gate the rows it alone rejects while every quantity lies more
+    than 1e-4 from its boundary (a version without that gate differs there)."""
+    q = {k: v.cpu().numpy().astype(np.float64) if isinstance(v, torch.Tensor) else v for k, v in p.items()}
+    L = q["xyz"].shape[0]
+    s = np.clip(q["ids"], 0, L - 1).astype(np.int64)
+    X, R, t = q["xyz"][s], q["R"], q["t"]
+    xc = X @ R.T + t
+    z = xc[:, 2]
+    zs = np.where(np.abs(z) < 1e-9, 1e-9, z)
+    u, v = p["fx"] * xc[:, 0] / zs + p["cx"], p["fy"] * xc[:, 1] / zs + p["cy"]
+    ray = X + R.T @ t
+    dist = np.linalg.norm(ray, axis=-1)
+    dmax = q["dmax"][s]
+    raw = np.log(np.maximum(dmax / np.maximum(dist, 1e-6), 1e-6)) / np.log(p["scale_factor"]) - 1e-4
+    w, h = p["width"], p["height"]
+    gates = {"z": z > 1e-3, "u0": u >= 0, "u1": u < w, "v0": v >= 0, "v1": v < h}
+    rel = lambda a, b: np.abs(a - b) / np.maximum(1.0, np.abs(b))  # noqa: E731
+    m = [rel(z, 1e-3), np.abs(u) / w, np.abs(u - w) / w, np.abs(v) / h, np.abs(v - h) / h]
+    if p["frustum"]:
+        cos_view = np.sum(ray * q["normal"][s], -1) / np.maximum(dist, 1e-9)
+        dmin = q["dmin"][s]
+        gates.update(view=cos_view > p["view_cos_th"], dmin=dist >= 0.8 * dmin, dmax=dist <= 1.2 * dmax)
+        m += [rel(cos_view, p["view_cos_th"]), rel(dist, 0.8 * dmin), rel(dist, 1.2 * dmax)]
+    margin = np.min(np.stack(m), 0)
+    ok = (q["ids"] >= 0) & (q["ids"] < L) & (q["valid"][s] > 0)
+    clear = ok & (margin > 1e-4)
+    alone = {g: int(np.sum(clear & ~a & np.all([b for k, b in gates.items() if k != g], 0)))
+             for g, a in gates.items()}
+    return dict(ok=ok, gates=gates, margin=margin, octave=np.abs(raw - np.round(raw)), z=z,
+                scale=np.linalg.norm(X, axis=-1) + np.linalg.norm(t), alone=alone)
+
+
+def make_match_problem(seed: int = 0, N: int = 1024, F: int = 1024, L: int = 32768, prior: bool = False,
+                       device="cuda") -> dict:
+    """The arguments of one ``kernels.project.invert_matches`` call: kernel
+    B's ``match_ft`` over ``N`` rows (60% a feature in [-3, F + 4), so -1,
+    lower and past F; 40% among the first F / 8 features, so many rows share
+    one), ids in [-2, L + 3), and with ``prior`` a prior association on 30%
+    of the features."""
+    rng = np.random.default_rng(seed)
+    match = np.where(rng.random(N) < 0.6, rng.integers(-3, F + 4, N), rng.integers(0, max(F // 8, 1), N))
+
+    def dev(x):
+        return torch.as_tensor(x.astype(np.int32)).to(device)
+
+    return dict(match_ft=dev(match), ids=dev(rng.integers(-2, L + 3, N)), F=F, L=L,
+                prior=dev(np.where(rng.random(F) < 0.3, rng.integers(0, L, F), -1)) if prior else None)
 
 
 def make_pose_graph(seed: int = 0, K: int = 256, n_live: int | None = None, drift: float = 0.02,

@@ -4,7 +4,10 @@ Port of ``dialog_tpu/tracking.py``: motion-model projection search (also on
 its own, ``track_motion_model``), the reference-keyframe fallback, pose
 optimization, the local-map search, a second pose optimization and outlier
 filtering, all in ``fused_track_step``.
-Projection searches go through ``matching.match_projected`` (kernel B).
+A projection search is three steps: ``kernels.project.project_gate`` gathers,
+projects and gates the landmarks, ``matching.mutual_match_fused`` (kernel B)
+matches them, and ``kernels.project.invert_matches`` turns the matches into
+per-feature landmark ids; on the card each is one launch.
 
 ``fused_track_step_auto`` predicts the pose on the device from the two
 previous poses, and ``fused_track_multi`` chains B such steps against a frozen
@@ -23,6 +26,7 @@ from . import matching, ops
 from .config import EngineConfig
 from .containers import INVALID_ID, FrameArrays, MapState
 from .instrument import span
+from .kernels import project as _project
 from .optim.pose_only import pose_optimization
 
 
@@ -33,63 +37,39 @@ class TrackOut(NamedTuple):
     t: torch.Tensor
 
 
-def predict_scale(dist, dmax, cfg: EngineConfig):
-    """Predicted detection octave from camera distance (MapPoint::PredictScale)."""
-    ratio = torch.clamp(dmax / torch.clamp(dist, min=1e-6), min=1e-6)
-    log_s = torch.log(ops.scalar(cfg.scale_factor, torch.float32, ratio.device))
-    lvl = torch.ceil(torch.log(ratio) / log_s - 1e-4)
-    return torch.clamp(lvl, 0, cfg.n_levels - 1).to(torch.int32)
+def project_landmarks(m: MapState, ids, R, t, cfg: EngineConfig, radius: float, frustum: bool = False,
+                      lm_of_feat=None, feat_valid=None) -> _project.Projection:
+    """``kernels.project.project_gate`` over the landmark store of ``m`` at
+    ``cfg``'s camera: ids i32[N] (L or negative = none) gathered, projected
+    through (R, t) and gated, with kernel B's radius squared at ``radius``
+    pixels. With ``frustum=True`` the full isInFrustum gate applies (viewing
+    angle within 60 deg of the mean normal, distance inside [0.8 dmin, 1.2
+    dmax]); with ``lm_of_feat`` (and ``feat_valid``) the local-map form."""
+    lms = m.lms
+    return _project.project_gate(
+        ids, lms.xyz, lms.desc, lms.dmax, lms.valid, R, t, cfg.fx, cfg.fy, cfg.cx, cfg.cy, cfg.width, cfg.height,
+        cfg.scale_factor, cfg.n_levels, radius, normal=lms.normal, dmin=lms.dmin, view_cos_th=cfg.view_cos_th,
+        frustum=frustum, lm_of_feat=lm_of_feat, feat_valid=feat_valid)
 
 
-def _project_landmarks(m: MapState, ids, R, t, cfg: EngineConfig, frustum: bool = False):
-    """Gather landmark data for ids (L = invalid sentinel) and project.
-
-    With ``frustum=True`` the full isInFrustum gate applies (viewing angle
-    within 60 deg of the mean normal, distance inside [0.8 dmin, 1.2 dmax]).
-    Returns (xyz, desc, uv, octave, vis) sized like ids.
-    """
-    L = m.lms.xyz.shape[0]
-    safe = torch.clamp(ids, 0, L - 1).long()
-    ok = (ids >= 0) & (ids < L) & m.lms.valid[safe]
-    xyz = m.lms.xyz[safe]
-    desc = m.lms.desc[safe]
-    dmax = m.lms.dmax[safe]
-    uv, z = geo.project(R, t, xyz, cfg.fx, cfg.fy, cfg.cx, cfg.cy)
-    inb = (uv[:, 0] >= 0) & (uv[:, 0] < cfg.width) & (uv[:, 1] >= 0) & (uv[:, 1] < cfg.height)
-    cam_center = -R.T @ t
-    ray = xyz - cam_center
-    dist = torch.linalg.norm(ray, dim=-1)
-    octv = predict_scale(dist, dmax, cfg)
-    vis = ok & (z > 1e-3) & inb
-    if frustum:
-        normal = m.lms.normal[safe]
-        dmin = m.lms.dmin[safe]
-        cos_view = torch.sum(ray * normal, dim=-1) / torch.clamp(dist, min=1e-9)
-        vis = vis & (cos_view > cfg.view_cos_th) & (dist >= 0.8 * dmin) & (dist <= 1.2 * dmax)
-    return xyz, desc, uv, octv, vis
-
-
-def _invert_matches(match_ft, src, F: int, L: int):
-    """Per-feature landmark id from per-landmark matches (drops out-of-range)."""
-    lm_of_feat = torch.full((F,), INVALID_ID, dtype=torch.int32, device=match_ft.device)
-    tgt = torch.where(match_ft >= 0, match_ft, F)
-    lm_of_feat = ops.scatter_set(lm_of_feat, tgt, torch.where(match_ft >= 0, src, L).to(torch.int32))
-    return torch.where(lm_of_feat >= L, INVALID_ID, lm_of_feat)
+def _search(p: _project.Projection, frame: FrameArrays, feat_valid, cfg: EngineConfig, ratio: float,
+            octave_band: int = 1):
+    """Kernel B over a projection and a frame's features (SearchByProjection):
+    match_ft i32[N]."""
+    match_ft, _ = matching.mutual_match_fused(
+        p.desc, frame.desc, p.vis, feat_valid, uv_a=p.uv, uv_b=frame.uv, radius2=p.radius2,
+        oct_a=p.octave, oct_b=frame.octave, octave_band=octave_band, max_dist=cfg.th_high, ratio=ratio,
+    )
+    return match_ft
 
 
 def _motion_match(m, last_lm_ids, frame: FrameArrays, R_pred, t_pred, cfg, radius):
     """Project the last frame's landmarks into the predicted pose and match."""
     F = frame.uv.shape[0]
     L = m.lms.xyz.shape[0]
-    ids = torch.where(last_lm_ids >= 0, last_lm_ids, L)
-    _, desc, uv_pred, octv, vis = _project_landmarks(m, ids, R_pred, t_pred, cfg)
-    match_ft, _ = matching.match_projected(
-        desc, uv_pred, vis, octv,
-        frame.desc, frame.uv, frame.valid, frame.octave,
-        radius=radius, scale_factor=cfg.scale_factor, max_dist=cfg.th_high, ratio=0.9,
-    )
-    lm_of_feat = _invert_matches(match_ft, ids, F, L)
-    return lm_of_feat, torch.sum((lm_of_feat >= 0).to(torch.int32))
+    p = project_landmarks(m, last_lm_ids, R_pred, t_pred, cfg, radius)
+    match_ft = _search(p, frame, frame.valid, cfg, ratio=0.9)
+    return _project.invert_matches(match_ft, last_lm_ids, F, L)
 
 
 def track_motion_model(m: MapState, last_lm_ids, frame: FrameArrays, R_pred, t_pred, cfg: EngineConfig,
@@ -154,22 +134,11 @@ def track_local_map_match(m, local_ids, frame: FrameArrays, lm_of_feat, R, t,
     with span("slam::local_map_search"):
         F = frame.uv.shape[0]
         L = m.lms.xyz.shape[0]
-        already = torch.zeros((L + 1,), dtype=torch.bool, device=lm_of_feat.device)
-        already = ops.scatter_set(already, torch.where(lm_of_feat >= 0, lm_of_feat, L), True)[:L]
-        _, desc, uv_pred, octv, in_frustum = _project_landmarks(m, local_ids, R, t, cfg, frustum=True)
-        safe = torch.clamp(local_ids, 0, L - 1)
-        vis = in_frustum & ~already[safe.long()]
-        feat_free = frame.valid & (lm_of_feat < 0)
-        match_ft, _ = matching.match_projected(
-            desc, uv_pred, vis, octv,
-            frame.desc, frame.uv, feat_free, frame.octave,
-            radius=radius, scale_factor=cfg.scale_factor,
-            max_dist=cfg.th_high, ratio=0.8, octave_band=2,
-        )
-        new_lm = _invert_matches(match_ft, safe, F, L)
-        merged = torch.where(lm_of_feat >= 0, lm_of_feat, new_lm)
-        in_frustum = in_frustum | already[safe.long()]
-        return merged, torch.sum((merged >= 0).to(torch.int32)), in_frustum
+        p = project_landmarks(m, local_ids, R, t, cfg, radius, frustum=True, lm_of_feat=lm_of_feat,
+                              feat_valid=frame.valid)
+        match_ft = _search(p, frame, p.free, cfg, ratio=0.8, octave_band=2)
+        merged, n = _project.invert_matches(match_ft, local_ids, F, L, prior=lm_of_feat)
+        return merged, n, p.seen
 
 
 def gather_track_problem(m: MapState, frame: FrameArrays, lm_of_feat, cfg: EngineConfig):

@@ -176,14 +176,13 @@ def test_tracking_helpers_match_reference(tracked):
     (mj, lastj, frj, Rpj, tpj, _, _, refj), (mt, lastt, frt, Rpt, tpt, _, _, reft) = tracked
     for frustum in (False, True):
         ids_j = jnp.where(lastj >= 0, lastj, JCFG.max_landmarks)
-        a = jt._project_landmarks(mj, ids_j, Rpj, tpj, JCFG, frustum=frustum)
-        b = tt._project_landmarks(mt, torch.where(lastt >= 0, lastt, TCFG.max_landmarks), Rpt, tpt, TCFG,
-                                  frustum=frustum)
-        for k, (x, y) in enumerate(zip(a, b)):
-            if k == 2:
-                np.testing.assert_allclose(np.asarray(x), y.numpy(), atol=1e-3)
-            else:
-                np.testing.assert_array_equal(np.asarray(x).view(np.int32) if k == 1 else np.asarray(x), y.numpy())
+        _, desc, uv, octave, vis = jt._project_landmarks(mj, ids_j, Rpj, tpj, JCFG, frustum=frustum)
+        p = tt.project_landmarks(mt, torch.where(lastt >= 0, lastt, TCFG.max_landmarks), Rpt, tpt, TCFG, 0.0,
+                                 frustum=frustum)
+        np.testing.assert_array_equal(np.asarray(desc).view(np.int32), p.desc.numpy())
+        np.testing.assert_allclose(np.asarray(uv), p.uv.numpy(), atol=1e-3)
+        np.testing.assert_array_equal(np.asarray(octave), p.octave.numpy())
+        np.testing.assert_array_equal(np.asarray(vis), p.vis.numpy())
     for x, y in zip(jt._motion_match(mj, lastj, frj, Rpj, tpj, JCFG, 15.0),
                     tt._motion_match(mt, lastt, frt, Rpt, tpt, TCFG, 15.0)):
         np.testing.assert_array_equal(np.asarray(x), y.numpy())
